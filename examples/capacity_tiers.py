@@ -5,14 +5,14 @@ The reference exposes FAISS codecs through factory strings
 (/root/reference/smqtk_indexing/impls/nn_index/faiss.py:190); here the
 same `dtype` axis composes with device meshes and host streaming:
 
-| tier                 | bytes/dim (d=128) | 16GB-chip capacity | exact? |
-|----------------------|-------------------|--------------------|--------|
-| float32 (default)    | 4                 | ~30M vectors       | yes    |
-| bfloat16             | 2                 | ~60M               | ~      |
-| sq8                  | 1                 | ~120M              | codec  |
-| pq16                 | 0.125             | ~800M              | codec  |
-| storage='host_stream'| host RAM          | unbounded          | yes    |
-| n_devices=N (mesh)   | × N chips         | × N                | yes    |
+| tier                 | bytes/dim (d=128) | capacity vs f32 | exact? |
+|----------------------|-------------------|-----------------|--------|
+| float32 (default)    | 4                 | 1x              | yes    |
+| bfloat16             | 2                 | 2x              | ~      |
+| sq8                  | 1                 | 4x              | codec  |
+| pq16                 | 0.125             | 32x             | codec  |
+| storage='host_stream'| host RAM          | unbounded       | yes    |
+| n_devices=N (mesh)   | × N devices       | × N             | yes    |
 
 Run: python examples/capacity_tiers.py   (CPU-safe; small shapes)
 """
@@ -39,7 +39,7 @@ def main() -> None:
         ("bfloat16", FlatNearestNeighborsIndex(dtype="bfloat16")),
         ("SQ8 via factory", index_from_factory_string("IDMap,SQ8")),
         ("PQ16 via factory", index_from_factory_string("PQ16")),
-        (">HBM host stream",
+        ("host stream",
          FlatNearestNeighborsIndex(storage="host_stream")),
     ]
     for name, idx in tiers:

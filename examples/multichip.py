@@ -1,10 +1,12 @@
 """
-Multi-chip indexes on an emulated 8-device mesh.
+Multi-device indexes: row-sharded over every device of the default
+backend (the largest power of two of them).
 
-Run (the emulation env must be set before jax initializes):
-    XLA_FLAGS=--xla_force_host_platform_device_count=8 \
-        python examples/multichip.py
-On a real TPU slice, drop the env var — `n_devices` uses the slice's chips.
+Run on the CPU with an emulated 8-device mesh (the example sets the
+emulation flag itself before jax initializes):
+    JAX_PLATFORMS=cpu python examples/multichip.py
+On a machine with several cards, run it without JAX_PLATFORMS and
+`n_devices` takes the cards.
 """
 import os
 
@@ -28,17 +30,16 @@ from smqtk_indexing_tpu.models.nn_index.ivf import (  # noqa: E402
 
 
 def main() -> None:
-    # make_mesh falls back to the virtual CPU host platform automatically
-    # when the default backend has fewer than n_devices chips.
+    n_dev = 1 << (len(jax.devices()).bit_length() - 1)
     print(f"default devices: {len(jax.devices())} "
-          f"({jax.devices()[0].platform})")
+          f"({jax.devices()[0].platform}); sharding over {n_dev}")
     rng = np.random.default_rng(0)
     elems = [DescriptorMemoryElement(i, rng.normal(size=64).astype(np.float32))
              for i in range(4096)]
 
-    # Exhaustive scan row-sharded over 8 devices: per-shard fused top-k,
-    # ICI all-gather merge.
-    flat = FlatNearestNeighborsIndex(n_devices=8)
+    # Exhaustive scan row-sharded over the devices: per-shard top-k,
+    # k-sized all-gather merge.
+    flat = FlatNearestNeighborsIndex(n_devices=n_dev)
     flat.build_index(elems)
     res, dists = flat.nn(elems[7], 5)
     print("sharded flat top-5:",

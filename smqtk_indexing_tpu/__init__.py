@@ -1,9 +1,9 @@
 """
-smqtk_indexing_tpu — a TPU-native nearest-neighbor index-and-query engine.
+smqtk_indexing_tpu — an accelerator nearest-neighbor index-and-query engine.
 
 Provides the same capability surface as SMQTK-Indexing (reference:
 /root/reference/smqtk_indexing/__init__.py:1-3 exports the three interfaces),
-re-designed TPU-first: descriptor matrices and packed hash codes live in
+re-designed device-first: descriptor matrices and packed hash codes live in
 device-resident JAX arrays, every build/query is a jitted XLA/Pallas program,
 and host Python only orchestrates and maps UIDs.
 """

@@ -113,9 +113,9 @@ class Pluggable (metaclass=abc.ABCMeta):
 
         ``is_usable()`` answers only "can it run at all"; this answers
         "HOW will it run" — compute-backed impls extend it with their
-        backend, kernel tier ('tpu-pallas' vs 'cpu-interpret'), any
+        backend, kernel tier ('gpu-triton' vs 'cpu-interpret'), any
         env-flag-disabled engines, and a summary ``degraded`` bool, so a
-        service operator can distinguish native-TPU serving from an
+        service operator can distinguish compiled-GPU serving from an
         interpret-mode fallback before taking traffic (the reference's
         availability gate pattern, faiss.py:86-89, extended to degraded
         modes the boolean cannot express).

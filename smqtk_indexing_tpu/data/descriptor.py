@@ -4,7 +4,7 @@ Descriptor data model: minimal equivalents of
 unit indexed by every reference implementation, e.g.
 /root/reference/smqtk_indexing/impls/nn_index/faiss.py:23-24).
 
-TPU-first inversion: ``get_many_vectors`` / ``MemoryDescriptorSet.matrix()``
+Device-first inversion: ``get_many_vectors`` / ``MemoryDescriptorSet.matrix()``
 produce one contiguous float32 matrix in a single pass so the engine can ship
 a batch to the device instead of iterating elements (replaces the reference's
 host thread/process ``parallel_map`` vector collection).

@@ -5,7 +5,7 @@ Contract-parity with /root/reference/smqtk_indexing/interfaces/lsh_functor.py:11
 (descriptor vector -> boolean hash bit-vector; similar inputs should collide
 with high probability).
 
-TPU-first addition: ``get_hash_batch`` maps a whole (n, d) matrix to an
+Device-first addition: ``get_hash_batch`` maps a whole (n, d) matrix to an
 (n, bits) boolean matrix in one device program — the reference's
 per-descriptor Python hashing loop
 (/root/reference/smqtk_indexing/impls/nn_index/lsh.py:316-321) becomes a

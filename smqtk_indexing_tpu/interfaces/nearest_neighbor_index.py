@@ -7,9 +7,9 @@ Contract-parity with
 ValueError on empty input iterables / vectorless queries / empty index;
 KeyError with no mutation on unknown removal UIDs).
 
-TPU-first addition: ``nn_many`` — a batched query entry point so callers can
+Device-first addition: ``nn_many`` — a batched query entry point so callers can
 amortize one device program launch over a whole query matrix, which is where
-the MXU wins come from. The default implementation loops ``_nn``;
+the matrix-unit throughput comes from. The default implementation loops ``_nn``;
 device-backed implementations override ``_nn_many`` with a single batched
 kernel and ``_nn`` becomes the batch-of-one special case.
 """

@@ -5,7 +5,7 @@ Both ``LinearHashIndex`` and ``BallTreeHashIndex`` execute on the same exact
 XOR + population_count + fused top-k scan over packed uint32 codes
 (ops/hamming.CodeStore) — they differ only in configuration surface (the
 reference exposed two impls, linear.py and sklearn_balltree.py, whose
-engines genuinely differed on CPU; on TPU the exhaustive scan dominates both,
+engines genuinely differed on CPU; on the device the exhaustive scan serves both,
 see block.py's module docstring). This base holds the shared cache
 persistence, mutation, and normalized-Hamming query plumbing so the plugins
 stay two distinct config classes without duplicated bodies.
@@ -40,8 +40,7 @@ class _CodeStoreHashIndex (HashIndex):
     def usability_report(cls) -> dict:
         from smqtk_indexing_tpu.ops.device import device_report
         r = super().usability_report()
-        r.update(device_report(flags=(
-            "SMQTK_TPU_NO_MXU_HAMMING", "SMQTK_TPU_NO_NATIVE")))
+        r.update(device_report(flags=("SMQTK_TPU_NO_NATIVE",)))
         return r
 
     def _init_store(self) -> None:

@@ -7,11 +7,11 @@ same constructor surface (``cache_element``, ``leaf_size``, ``random_seed``),
 same build-dedup / rebuild-on-update / rebuild-on-remove / normalized-Hamming
 ``nn`` semantics.
 
-TPU-first inversion: a metric ball tree is a pointer-chasing, data-dependent
-branch structure — the worst possible shape for a systolic/vector machine. On
-TPU the exhaustive packed XOR + population_count + fused top-k scan
+Device-first inversion: a metric ball tree is a pointer-chasing,
+data-dependent branch structure — the worst possible shape for a wide
+parallel machine. On the device the exhaustive packed XOR + population_count + fused top-k scan
 (ops/hamming.py) is both exact and faster than any tree traversal up to very
-large N (the scan is HBM-bandwidth bound at ~bits/8 bytes per code), so this
+large N (the scan is memory-bandwidth bound at ~bits/8 bytes per code), so this
 implementation intentionally executes on the same engine as LinearHashIndex
 (shared base ``_base._CodeStoreHashIndex``). ``leaf_size`` and
 ``random_seed`` are retained for config-surface parity and are no-ops, as
@@ -32,11 +32,11 @@ from smqtk_indexing_tpu.models.hash_index._base import _CodeStoreHashIndex
 class BallTreeHashIndex (_CodeStoreHashIndex):
     """
     Hamming hash index with the reference BallTree configuration surface,
-    executing as an exact packed-code scan on TPU.
+    executing as an exact packed-code scan on the device.
 
     :param cache_element: Optional DataElement for write-through persistence.
     :param leaf_size: Accepted for parity with the reference's sklearn
-        BallTree parameter (sklearn_balltree.py:96-104); the TPU scan has no
+        BallTree parameter (sklearn_balltree.py:96-104); the device scan has no
         tree, so this affects nothing and is preserved in config
         round-trips.
     :param random_seed: Accepted for parity; unused (the scan is exact and

@@ -1,5 +1,5 @@
 """
-Brute-force Hamming-distance hash index, TPU edition.
+Brute-force Hamming-distance hash index, device edition.
 
 Capability-parity with the reference's ``LinearHashIndex``
 (/root/reference/smqtk_indexing/impls/hash_index/linear.py:28-244) which keeps
@@ -55,7 +55,7 @@ class LinearHashIndex (_CodeStoreHashIndex):
                  n_devices: Optional[int] = None):
         """
         :param n_devices: Row-shard the packed codes across this many
-            devices (per-shard scan + ICI all-gather merge); None = single
+            devices (per-shard scan + all-gather merge); None = single
             device.
         """
         super().__init__()

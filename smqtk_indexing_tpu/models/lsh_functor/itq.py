@@ -8,7 +8,7 @@ itq_iterations, normalize, random_seed), same model persistence as ``.npy``
 bytes (itq.py:212-237), same dim >= bit_length guard (itq.py:326-330), same
 big-endian bit-0-is-MSB hash semantics (itq.py:46-50).
 
-TPU-first inversion: ``fit`` is one jitted XLA program (ops/itq.itq_fit —
+Device-first inversion: ``fit`` is one jitted XLA program (ops/itq.itq_fit —
 PCA via eigh + the 50-iteration rotation loop under lax.fori_loop) instead of
 the reference's host numpy eig/SVD loop, and hashing is a single batched
 matmul+sign kernel.

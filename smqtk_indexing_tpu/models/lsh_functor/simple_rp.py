@@ -7,7 +7,7 @@ records the sample mean and a (dim, bits) Gaussian projection; hashing is
 ``(v - mean) @ rps >= 0``. Explicitly a baseline functor, "not for
 production" (simple_rp.py:17-20) — use ItqFunctor.
 
-TPU-first: ``get_hash_batch`` runs the whole matrix through one jitted
+Device-first: ``get_hash_batch`` runs the whole matrix through one jitted
 matmul+sign program (ops/itq.hash_batch) instead of the reference's
 per-descriptor host loop.
 """

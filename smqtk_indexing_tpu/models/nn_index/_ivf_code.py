@@ -1,16 +1,13 @@
 """
 Code-tier (tiled-transposed capacity) engine for IvfNearestNeighborsIndex.
 
-The upload/query strategy of ``storage='code'`` — and of the rows-tier
-compressed configurations ROUTED through the same tiled DMA kernels
-(ivf._tiled_rows_ok) — extracted from models/nn_index/ivf.py (round-5
-split; the class keeps thin delegates so its public/private surface and
-the validate_ivf_combination contract are unchanged). Functions take the
-index instance as ``idx`` and operate on its state under its model lock.
+The upload/query strategy of ``storage='code'``, extracted from
+models/nn_index/ivf.py (the class keeps thin delegates so its
+public/private surface and the validate_ivf_combination contract are
+unchanged). Functions take the index instance as ``idx`` and operate on
+its state under its model lock.
 """
 from __future__ import annotations
-
-from typing import Optional
 
 import jax.numpy as jnp
 import numpy as np
@@ -54,24 +51,15 @@ def encode_rows(idx, mat: np.ndarray, assigns: np.ndarray,
     return sq8_encode_np(mat, idx._code_a, idx._code_b)
 
 
-def upload_tiled(idx, sq8_codes: Optional[np.ndarray] = None,
-                  sq8_ab=None,
-                  pq_codes: Optional[np.ndarray] = None,
-                  pq_cb: Optional[np.ndarray] = None,
-                  pq_rot: Optional[np.ndarray] = None) -> None:
+def upload_tiled(idx) -> None:
     """Tiled-transposed device build: the single-copy layout (rows
-    tile-major, dims contiguous — the DMA kernels' form,
-    ops/pallas_ivf.TILE_ROWS) + per-row surrogate stats (+inf on dead
+    tile-major, dims contiguous — the list scan's form,
+    ops/ivf_tiled.TILE_ROWS) + per-row surrogate stats (+inf on dead
     rows so removed entries can never win a scan), sublist CSR and the
-    original->sublist slot table for table-form probe selection.
-
-    Two callers: the 'code' tier (host mirror IS the codes; codec in
-    ``_code_a``/``_code_b``/``_code_cb``) and the rows-sq8/pq TPU
-    routing (``sq8_codes``/``sq8_ab`` or ``pq_codes``/``pq_cb`` carry
-    an encode-on-upload view of the float32 host mirror — the codec
-    retrains per layout, matching the row-major compressed paths'
-    semantics, and is never persisted)."""
-    from smqtk_indexing_tpu.ops.pallas_ivf import (
+    original->sublist slot table for table-form probe selection. The
+    host mirror IS the codes; the codec lives in
+    ``_code_a``/``_code_b``/``_code_cb``."""
+    from smqtk_indexing_tpu.ops.ivf_tiled import (
         TILE_ROWS, build_slot_table, build_tiled_csr,
     )
     # Symmetric to _upload's stale-tiled clearing: a tiled rebuild
@@ -84,24 +72,24 @@ def upload_tiled(idx, sq8_codes: Optional[np.ndarray] = None,
     d_pad = idx._centroids_np.shape[1]
     n_tiles = max(1, -(-n // TILE_ROWS))
     # Mesh sharding splits the TILE axis: round the tile count up to
-    # the device count so every shard owns whole tiles (a lane-dim
-    # DMA cannot cross tiles); surplus rows are dead-poisoned below.
+    # the device count so every shard owns whole tiles (a probe
+    # window cannot cross tiles); surplus rows are dead-poisoned below.
     mesh = idx._make_mesh()
     if mesh is not None:
         s_dev = mesh.devices.size
         n_tiles = -(-n_tiles // s_dev) * s_dev
     n_pad = n_tiles * TILE_ROWS
     # Dead rows (and alignment padding) poison their surrogate: the
-    # kernels score s2 - 2<lut/t, codes>, so +inf rows can never be
+    # scan scores s2 - 2<lut/t, codes>, so +inf rows can never be
     # selected — no separate liveness gather exists on this path.
     dead = np.ones(n_pad, dtype=bool)
     dead[:n] = ~idx._valid_host
     if idx._pq_m(idx.dtype) is not None:
         m, _, perm = idx._pq_grid()
-        cb = pq_cb if pq_cb is not None else idx._code_cb
-        rot = pq_rot if pq_rot is not None else idx._code_rot
+        cb = idx._code_cb
+        rot = idx._code_rot
         codes = np.zeros((n_pad, m), dtype=np.uint8)
-        codes[:n] = pq_codes if pq_codes is not None else idx._host
+        codes[:n] = idx._host
         s2 = np.zeros(n_pad, dtype=np.float64)
         if idx.metric != "inner_product":
             # IP kernel form needs NO row stats (score = -2<q, x_hat>)
@@ -137,8 +125,8 @@ def upload_tiled(idx, sq8_codes: Optional[np.ndarray] = None,
             idx._row2list_dev = asg_pad
         s2 = s2.astype(np.float32)
         s2[dead] = np.inf
-        # uint8 codes bit-reinterpreted to int8 (Mosaic's proven
-        # int8 DMA path; the kernel masks back with & 0xFF).
+        # uint8 codes stored as int8 bits (the scan masks back with
+        # & 0xFF).
         tiles = codes.view(np.int8).reshape(n_tiles, TILE_ROWS, m) \
             .transpose(0, 2, 1)
         idx._cb_dev = jnp.asarray(cb.astype(np.float32))
@@ -151,11 +139,9 @@ def upload_tiled(idx, sq8_codes: Optional[np.ndarray] = None,
         else:
             idx._perm_dev = jnp.asarray(perm)
     else:
-        code_a, code_b = sq8_ab if sq8_ab is not None \
-            else (idx._code_a, idx._code_b)
+        code_a, code_b = idx._code_a, idx._code_b
         codes = np.zeros((n_pad, d_pad), dtype=np.int8)
-        codes[:n, :dim] = sq8_codes if sq8_codes is not None \
-            else idx._host
+        codes[:n, :dim] = idx._host
         # Padding dims: epsilon scale / zero offset (zero codes and
         # query dims contribute nothing to any score term — ops/sq8).
         a_p = np.full(d_pad, 1e-12, dtype=np.float32)
@@ -205,7 +191,7 @@ def upload_tiled(idx, sq8_codes: Optional[np.ndarray] = None,
         # with a NamedSharding sends each device only its slice —
         # wrapping in jnp.asarray first would commit the whole
         # multi-GB tile buffer to ONE device before resharding
-        # (OOM at >1-chip corpus sizes, the tier's whole point).
+        # (OOM at corpus sizes beyond one device, the tier's whole point).
         idx._dev3 = shard_rows(mesh, np.ascontiguousarray(tiles))
         idx._s2t = shard_rows(
             mesh, s2.reshape(n_tiles, 1, TILE_ROWS))
@@ -262,89 +248,65 @@ def upload_tiled(idx, sq8_codes: Optional[np.ndarray] = None,
 
 
 def query_tiled(idx, q_p, k_dev):
-    """Serve one padded query batch through the tiled DMA engines
-    (sharded mesh or single device), or return None when no tiled
-    device state exists (the rows-tier row-major engines serve it —
-    _ivf_rows.query_rows)."""
+    """Serve one padded query batch through the tiled list scan (sharded
+    mesh or single device), or return None when no tiled device state
+    exists (the rows-tier engines serve it — _ivf_rows.query_rows)."""
     if idx._dev3 is None:
         return None
+    from smqtk_indexing_tpu.ops.device import kernel_interpret
+    nprobe_o = min(idx.nprobe, idx._centroids_np.shape[0])
+    rr = "score" if idx.rerank == "score" else "gather"
+    pq = idx._pq_m(idx.dtype) is not None
+    # The SQ8 list scan runs compiled on a GPU, interpreted on the CPU —
+    # decided from where the tiles actually live (tests may pin work to
+    # CPU devices). The PQ list scan is plain XLA.
+    interp = None if pq else kernel_interpret(idx._dev3)
     if idx._mesh is not None:
-        # Sharded capacity tier: per-shard tiled DMA scan over
-        # the clipped CSR views + hierarchical k-merge
-        # (parallel/sharded_ivf_code.py).
+        # Sharded code tier: per-shard tiled list scan over the clipped
+        # CSR views + hierarchical k-merge (parallel/sharded_ivf_code.py).
         from smqtk_indexing_tpu.parallel.mesh import replicate
         from smqtk_indexing_tpu.parallel.sharded_ivf_code import (
             sharded_ivf_query_tiled, sharded_ivf_query_tiled_pq,
         )
-        nprobe_o = min(idx.nprobe, idx._centroids_np.shape[0])
-        rr = "score" if idx.rerank == "score" else "gather"
-        # Interpret must follow the MESH's platform, not the
-        # default backend: on a single-chip TPU session make_mesh
-        # falls back to the virtual CPU host platform, where the
-        # Mosaic kernels can only run interpreted.
-        interp = next(
-            iter(idx._mesh.devices.flat)).platform != "tpu"
         qd = replicate(idx._mesh, jnp.asarray(q_p))
-        if idx._pq_m(idx.dtype) is not None:
+        if pq:
             rc = None if idx._cents_codec_dev is None else \
                 replicate(idx._mesh, idx._cents_codec_dev)
-            dists, rows = sharded_ivf_query_tiled_pq(
+            return sharded_ivf_query_tiled_pq(
                 idx._mesh, idx._dev3, idx._s2t,
                 replicate(idx._mesh, idx._cb_dev),
                 replicate(idx._mesh, idx._perm_dev),
                 idx._dev_centroids, idx._slot_table,
                 idx._v_tile, idx._v_col, idx._v_len, qd,
-                k=k_dev, nprobe_orig=nprobe_o,
-                interpret=interp, rerank=rr,
+                k=k_dev, nprobe_orig=nprobe_o, rerank=rr,
                 res_cents=rc, row2list=idx._row2list_dev,
                 metric=idx.metric)
-        else:
-            dists, rows = sharded_ivf_query_tiled(
-                idx._mesh, idx._dev3, idx._s2t,
-                replicate(idx._mesh, idx._sq8_a),
-                replicate(idx._mesh, idx._sq8_b),
-                idx._dev_centroids, idx._slot_table,
-                idx._v_tile, idx._v_col, idx._v_len, qd,
-                k=k_dev, nprobe_orig=nprobe_o,
-                interpret=interp, rerank=rr,
-                metric=idx.metric)
-    else:
-        # Tiled-transposed DMA list-scan with original-centroid
-        # table probe selection (the 100M demo's serving path,
-        # behind the public model API) — the 'code' capacity tier
-        # always, and rows-sq8 when routed (_tiled_rows_ok). Dead
-        # rows are +inf-poisoned in _s2t, so no liveness gather.
-        import jax
-        from smqtk_indexing_tpu.ops.pallas_ivf import (
-            ivf_query_dma_tiled_table,
-            ivf_query_dma_tiled_table_pq,
-        )
-        nprobe_o = min(idx.nprobe, idx._centroids_np.shape[0])
-        rr = "score" if idx.rerank == "score" else "gather"
-        # Gate interpret on the ACTUAL placement of the tiles
-        # (tests/users may pin computation to CPU via
-        # jax.default_device while the default backend is still
-        # the TPU — Mosaic cannot run there).
-        try:
-            interp = next(
-                iter(idx._dev3.devices())).platform != "tpu"
-        except Exception:  # pragma: no cover - exotic arrays
-            interp = jax.default_backend() != "tpu"
-        if idx._pq_m(idx.dtype) is not None:
-            dists, rows = ivf_query_dma_tiled_table_pq(
-                idx._dev3, idx._s2t, idx._cb_dev,
-                idx._perm_dev, idx._dev_centroids,
-                idx._slot_table, idx._v_tile, idx._v_col,
-                idx._v_len, jnp.asarray(q_p), k=k_dev,
-                nprobe_orig=nprobe_o, interpret=interp,
-                rerank=rr, res_cents=idx._cents_codec_dev,
-                row2list=idx._row2list_dev,
-                metric=idx.metric)
-        else:
-            dists, rows = ivf_query_dma_tiled_table(
-                idx._dev3, idx._s2t, idx._sq8_a, idx._sq8_b,
-                idx._dev_centroids, idx._slot_table,
-                idx._v_tile, idx._v_col, idx._v_len,
-                jnp.asarray(q_p), k=k_dev, nprobe_orig=nprobe_o,
-                interpret=interp, rerank=rr, metric=idx.metric)
-    return dists, rows
+        return sharded_ivf_query_tiled(
+            idx._mesh, idx._dev3, idx._s2t,
+            replicate(idx._mesh, idx._sq8_a),
+            replicate(idx._mesh, idx._sq8_b),
+            idx._dev_centroids, idx._slot_table,
+            idx._v_tile, idx._v_col, idx._v_len, qd,
+            k=k_dev, nprobe_orig=nprobe_o,
+            interpret=interp, rerank=rr,
+            metric=idx.metric)
+    # Single device: dead rows are +inf-poisoned in _s2t, so no
+    # liveness gather.
+    from smqtk_indexing_tpu.ops.ivf_tiled import (
+        ivf_query_tiled, ivf_query_tiled_pq,
+    )
+    if pq:
+        return ivf_query_tiled_pq(
+            idx._dev3, idx._s2t, idx._cb_dev,
+            idx._perm_dev, idx._dev_centroids,
+            idx._slot_table, idx._v_tile, idx._v_col,
+            idx._v_len, jnp.asarray(q_p), k=k_dev,
+            nprobe_orig=nprobe_o, rerank=rr,
+            res_cents=idx._cents_codec_dev, row2list=idx._row2list_dev,
+            metric=idx.metric)
+    return ivf_query_tiled(
+        idx._dev3, idx._s2t, idx._sq8_a, idx._sq8_b,
+        idx._dev_centroids, idx._slot_table,
+        idx._v_tile, idx._v_col, idx._v_len,
+        jnp.asarray(q_p), k=k_dev, nprobe_orig=nprobe_o,
+        interpret=interp, rerank=rr, metric=idx.metric)

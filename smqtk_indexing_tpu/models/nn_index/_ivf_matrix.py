@@ -26,25 +26,23 @@ def _is_pq_dtype(dtype: str) -> bool:
 #:   dtype     metric                          devices   notes
 #:   float32   euclidean/inner_product/cosine  1..N
 #:   bfloat16  euclidean/inner_product/cosine  1..N
-#:   sq8       euclidean/inner_product/cosine  1..N      row-major DMA
-#:             kernel (measured faster than tiled at <=HBM scale); TPU
-#:             routes euclidean single-device through the TILED kernel
-#:             only for rerank='score' (_tiled_rows_ok;
-#:             SMQTK_TPU_NO_ROWS_TILED opts out)
-#:   pq/opq<M> euclidean/inner_product/cosine  1..N      TPU routes
-#:             euclidean single-device through the tiled ADC kernel
+#:   sq8       euclidean/inner_product/cosine  1..N      row-major XLA
+#:             list scan (ops/ivf.ivf_query)
+#:   pq/opq<M> euclidean/inner_product/cosine  1..N      XLA grouped
+#:             dequant list scan (ops/ivf.ivf_query_pq)
 #:   pq/opq<M> +pq_residual: euclidean only, 1..N (row2list row-shards
 #:             with the codes; codec-space centroids replicate)
 #: storage='code' (int8/uint8 code host mirror — the capacity tier):
 #:   dtype     metric                          devices   notes
-#:   sq8       euclidean/inner_product/cosine  1..N      tiled DMA scan;
+#:   sq8       euclidean/inner_product/cosine  1..N      tiled list scan;
 #:             sharded via parallel/sharded_ivf_code.py. inner_product
 #:             zeroes the row stats (the kernel score becomes exactly
 #:             -<q, x_hat - b>); cosine encodes L2-NORMALIZED rows and
 #:             normalizes queries (euclidean pipeline == cosine ranking
 #:             on the unit sphere)
-#:   pq/opq<M> euclidean/inner_product/cosine  1..N      in-kernel ADC
-#:             one-hot MXU dot (the LUT is a pure IP either way)
+#:   pq/opq<M> euclidean/inner_product/cosine  1..N      tiled ADC scan
+#:             (per-code table lookups; the table is a pure IP either
+#:             way)
 #:   pq/opq<M> +pq_residual: euclidean OR cosine, 1..N (row2list
 #:             row-shards with the tiles; res-centroids replicate).
 #:             Cosine residual = the euclidean residual pipeline over
@@ -52,8 +50,7 @@ def _is_pq_dtype(dtype: str) -> bool:
 #:             queries at serve) — rows-tier residual stays euclidean
 #:             (its codes carry raw rows)
 #: rerank: 'exact' everywhere; 'score' changes behavior only on the
-#:   tiled serving paths (code tier always; rows-sq8/pq when routed) —
-#:   on every other path distances are already exact, so 'score' is a
+#:   tiled serving path (the code tier) — on every other path distances are already exact, so 'score' is a
 #:   no-op there by construction, never an error.
 def validate_ivf_combination(metric: str, dtype: str, storage: str,
                              rerank: str, n_devices, pq_residual: bool

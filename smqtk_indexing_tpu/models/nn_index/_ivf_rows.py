@@ -3,12 +3,10 @@ Rows-tier (float/row-major) engine for IvfNearestNeighborsIndex.
 
 The upload/query strategy of ``storage='rows'`` — the float32 host
 mirror with per-codec device layouts (f32/bf16 rows, row-major sq8
-codes, PQ codes with XLA grouped dequant) and the row-major DMA
-list-scan — extracted from models/nn_index/ivf.py (round-5 split; the
-class keeps thin delegates). The rows-tier upload may ROUTE compressed
-configurations through the tiled engine instead (_tiled_rows_ok ->
-_ivf_code.upload_tiled) — the measured-win table lives on that method.
-Functions take the index instance as ``idx``.
+codes, PQ codes with XLA grouped dequant) served by the XLA list scans
+(ops/ivf.ivf_query[_pq]) — extracted from models/nn_index/ivf.py (the
+class keeps thin delegates). Functions take the index instance as
+``idx``.
 """
 from __future__ import annotations
 
@@ -21,50 +19,12 @@ from smqtk_indexing_tpu.ops.ivf import ivf_query
 from smqtk_indexing_tpu.ops.pq import pq_prep_queries as _pq_prep
 
 
+#: Longest virtual sublist of the rows-tier list balancer (see
+#: upload_rows); fixes list layouts, and with them probe sets and recall.
+SUBLIST_CAP = 480
+
+
 def upload_rows(idx) -> None:
-    if idx._tiled_rows_ok():
-        # rows-sq8/pq on a single chip: encode a per-layout codec
-        # view of the float32 mirror into the tiled-transposed layout
-        # and serve the capacity tier's DMA kernels (exact re-rank by
-        # default; the mirror itself stays float32).
-        if idx._pq_m(idx.dtype) is not None:
-            from smqtk_indexing_tpu.ops.pq import (
-                pq_encode_np, pq_train,
-            )
-            m = idx._pq_m(idx.dtype)
-            rows_c = idx._pq_prep_rows(idx._host, rotate=False)
-            if idx.pq_residual:
-                # Residual codec: quantize x - centroid(list); the
-                # OPQ rotation (if any) trains on the residuals.
-                rows_c = rows_c - idx._pq_cents_codec(None)[
-                    idx._assign_host]
-            live = rows_c[idx._valid_host] \
-                if not idx._valid_host.all() else rows_c
-            if idx._pq_rotate(idx.dtype):
-                from smqtk_indexing_tpu.ops.opq import opq_train
-                rot, cb = opq_train(live, m)
-                rows_c = rows_c @ rot
-            else:
-                rot, cb = None, pq_train(live, m)
-            idx._upload_tiled(pq_codes=pq_encode_np(rows_c, cb),
-                               pq_cb=cb, pq_rot=rot)
-        else:
-            from smqtk_indexing_tpu.ops.sq8 import (
-                sq8_encode_np, sq8_train,
-            )
-            live = idx._host[idx._valid_host] \
-                if not idx._valid_host.all() else idx._host
-            a, b = sq8_train(live)
-            idx._upload_tiled(
-                sq8_codes=sq8_encode_np(idx._host, a, b),
-                sq8_ab=(a, b))
-        return
-    # A re-layout may cross a routing-flag flip: the query path
-    # prefers tiled state when present, so stale tiled arrays from a
-    # previously-routed upload must not survive a row-major rebuild.
-    idx._dev3 = idx._s2t = None
-    idx._v_tile = idx._v_col = idx._v_len = None
-    idx._slot_table = None
     n = idx._host.shape[0]
     idx._capacity = capacity_for(n)
     d_pad = idx._centroids_np.shape[1]
@@ -134,11 +94,8 @@ def upload_rows(idx) -> None:
     # centroid scores tie, so the probe selection naturally spends
     # adjacent nprobe slots covering a big list (standard IVF bucket
     # balancing; nprobe counts sublists).
-    from smqtk_indexing_tpu.ops.pallas_ivf import L_MAX as _DMA_L
-    # Cap also at the DMA kernel's fixed block length (minus sublane
-    # alignment slack) so balanced layouts always qualify for it.
     cap = min(max(int(np.ceil(2.0 * max(n, 1) / c_count)), 32),
-              _DMA_L - 32)
+              SUBLIST_CAP)
     v_off, v_len, v_orig = [], [], []
     for li in range(c_count):
         length = int(lens[li])
@@ -167,8 +124,7 @@ def upload_rows(idx) -> None:
     # always has enough virtual slots regardless of how finely the
     # balancer split them.
     idx._max_split = int(np.bincount(v_orig).max())
-    idx._l_max_raw = max(int(v_len.max()), 1)
-    idx._l_max = _pow2_at_least(idx._l_max_raw)
+    idx._l_max = _pow2_at_least(max(int(v_len.max()), 1))
     # Centroids stay float even over int8 code storage.
     cent_dtype = jnp.bfloat16 if idx.dtype == "bfloat16" \
         else jnp.float32
@@ -226,9 +182,8 @@ def upload_rows(idx) -> None:
 def query_rows(idx, q_p, k_dev, nprobe, first_virt, nprobe_orig,
                has_dead):
     """Serve one padded query batch through the rows-tier engines:
-    sharded PQ / sharded generic / single-chip row-major DMA / PQ
-    grouped-dequant / generic XLA list scan (the dispatch order the
-    class always used)."""
+    sharded PQ / sharded generic / PQ grouped-dequant / generic XLA list
+    scan."""
     if idx._mesh is not None \
             and idx._pq_m(idx.dtype) is not None:
         from smqtk_indexing_tpu.parallel.mesh import replicate
@@ -263,16 +218,6 @@ def query_rows(idx, q_p, k_dev, nprobe, first_virt, nprobe_orig,
             nprobe=nprobe, l_max=idx._l_max, metric=idx.metric,
             dq=dq, first_virt=first_virt, nprobe_orig=nprobe_orig,
             has_dead=has_dead)
-    elif idx._dma_eligible():
-        from smqtk_indexing_tpu.ops.pallas_ivf import ivf_query_dma
-        dq = (idx._sq8_a, idx._sq8_b) \
-            if idx.dtype == "sq8" else None
-        dists, rows = ivf_query_dma(
-            idx._dev, idx._dev_valid,
-            idx._dev_centroids, idx._dev_offsets,
-            idx._dev_lens, jnp.asarray(q_p), k=k_dev,
-            n_probe=nprobe, first_virt=first_virt,
-            nprobe_orig=nprobe_orig, has_dead=has_dead, dq=dq)
     elif idx._pq_m(idx.dtype) is not None:
         from smqtk_indexing_tpu.ops.ivf import ivf_query_pq
         dists, rows = ivf_query_pq(

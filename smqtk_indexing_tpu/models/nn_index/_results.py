@@ -2,9 +2,8 @@
 Shared device-result -> NNResult assembly for the nn_index models.
 
 The per-query Python loop (mask, per-row uid list-comp, one
-``get_many_descriptors`` call per query, per-value ``float()``) measured
-tens of milliseconds at serving batches (B=1024) — comparable to the
-whole device program. These helpers vectorize everything batchable
+``get_many_descriptors`` call per query, per-value ``float()``) is host
+work that grows with every query of a serving batch (B=1024). These helpers vectorize everything batchable
 (float conversion via ``tolist``, uid mapping over only the B*k selected
 rows — never the full index) and fetch ALL queries' descriptors in ONE
 storage call, regrouping by per-query counts.

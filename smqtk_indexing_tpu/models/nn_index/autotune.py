@@ -1,5 +1,5 @@
 """
-Autotuned TPU nearest-neighbor index — FLANN-wrapper parity.
+Autotuned device nearest-neighbor index — FLANN-wrapper parity.
 
 Capability-parity with the reference's (deprecated)
 ``FlannNearestNeighborsIndex``
@@ -9,7 +9,7 @@ flann.py:55,90-95), same distance methods ('euclidean' | 'hik' |
 'chi_square', flann.py:96-100), same update/remove = rebuild-from-cache
 semantics (flann.py:360-412).
 
-TPU-first re-design: instead of FLANN's kd-tree/k-means autotuner, the
+Device-first re-design: instead of FLANN's kd-tree/k-means autotuner, the
 tuner calibrates an IVF (coarse-quantized) index against the exact
 exhaustive scan on a held-out sample, picking the smallest ``nprobe`` whose
 measured recall@10 meets ``target_precision`` — falling back to the exact
@@ -51,7 +51,7 @@ VALID_DISTANCES = ("euclidean", "hik", "chi_square", "cosine",
                    "inner_product")
 
 #: Below this many rows the exhaustive scan is unconditionally faster than
-#: any coarse quantization (one MXU pass over <= a few MB of HBM).
+#: any coarse quantization (one matrix pass over <= a few MB).
 _MIN_ROWS_FOR_IVF = 4096
 
 
@@ -78,7 +78,7 @@ class AutotunedNearestNeighborsIndex (NearestNeighborsIndex):
     def is_usable(cls) -> bool:
         # Usable whenever the compute stack imports (the reference gates
         # availability on backend importability, faiss.py:86-89); HOW it
-        # runs — native TPU kernels vs interpret fallback — is reported
+        # runs — compiled GPU kernels vs interpret fallback — is reported
         # by usability_report().
         try:
             import jax  # noqa: F401
@@ -90,8 +90,7 @@ class AutotunedNearestNeighborsIndex (NearestNeighborsIndex):
     def usability_report(cls) -> dict:
         from smqtk_indexing_tpu.ops.device import device_report
         r = super().usability_report()
-        r.update(device_report(flags=(
-            "SMQTK_TPU_NO_DMA_IVF", "SMQTK_TPU_NO_FUSED")))
+        r.update(device_report())
         return r
 
     @classmethod
@@ -216,7 +215,7 @@ class AutotunedNearestNeighborsIndex (NearestNeighborsIndex):
                                         "inner_product"):
             LOG.info(
                 "Metric %r has no coarse-quantizer form; serving exact "
-                "exhaustive scans (already the fast path on TPU).",
+                "exhaustive scans (already the fast path on the device).",
                 self.distance_method)
             return
         if n < _MIN_ROWS_FOR_IVF:

@@ -4,7 +4,7 @@ FAISS-style factory-string construction.
 Convenience parity with the reference's ``factory_string`` configuration
 surface (/root/reference/smqtk_indexing/impls/nn_index/faiss.py:182-199 —
 ``faiss.index_factory('IDMap,Flat')`` etc.): maps the common factory
-strings onto the TPU-native implementations so configs written against the
+strings onto this package's implementations so configs written against the
 FAISS wrapper translate mechanically.
 
 Supported grammar (comma-separated, 'IDMap' prefix ignored — UID mapping is
@@ -14,12 +14,12 @@ always on here):
 - ``SQ8``                       -> FlatNearestNeighborsIndex(dtype='sq8')
   (int8 scalar quantization, 4x capacity — the FAISS ``SQ8`` codec)
 - ``SQfp16``                    -> dtype='bfloat16' (half storage; bf16
-  is the TPU-native half format — fp16 mantissa bits beyond bf16's
-  would be discarded by the MXU anyway); ``SQ4``/``SQ6`` are rejected
+  keeps f32's exponent range at the same 2 bytes/dim and is the tensor
+  cores' half format); ``SQ4``/``SQ6`` are rejected
   with a pointer to SQ8/PQ
 - ``PQ<M>`` / ``PQ<M>x8``       -> FlatNearestNeighborsIndex(
   dtype='pq<M>') (product quantization, M bytes/vector: ~32x capacity at
-  d=128/PQ16 — served by the dequantize-then-scan MXU formulation,
+  d=128/PQ16 — served by the dequantize-then-scan matrix formulation,
   ops/pq.py; only 8-bit sub-codes are supported, as in the reference's
   default)
 - ``IVF<nlist>,Flat``           -> IvfNearestNeighborsIndex(n_lists=nlist)
@@ -40,8 +40,8 @@ always on here):
 
 Extra constructor options pass through ``kwargs`` — notably
 ``storage='code'`` turns 'IVF<n>,SQ8' / 'IVF<n>,PQ<M>' into the
-code-resident capacity tier (codes-only host mirror + the tiled
-DMA list-scan; FAISS's own IVF codecs likewise never retain float
+code-resident tier (codes-only host mirror + the tiled list
+scan; FAISS's own IVF codecs likewise never retain float
 originals).
 """
 from __future__ import annotations
@@ -83,8 +83,8 @@ def index_from_factory_string(factory_string: str,
              if p.strip() and p.strip().lower() != "idmap"]
     # 'SQfp16' (FAISS's half-precision scalar quantizer) maps to the
     # bfloat16 tier: same 2 bytes/dim and intent (half storage, near-f32
-    # recall); bf16 is the TPU's native half format — fp16's extra
-    # mantissa bits would be discarded by the MXU anyway.
+    # recall); bf16 keeps f32's exponent range and is the tensor cores'
+    # half format.
     codecs = {"flat": "float32", "sq8": "sq8", "sqfp16": "bfloat16"}
     for p in parts:
         if re.fullmatch(r"SQ[46]", p, flags=re.IGNORECASE):

@@ -8,7 +8,7 @@ surface of the reference class of the same name
 ``use_gpu``/``gpu_id``, the three-store ``descriptor_set``/
 ``uid2idx_kvs``/``idx2uid_kvs`` layout, and the split
 ``index_element``/``index_param_element`` persistence), and serves it
-with the TPU-native engines via the factory-string mapping
+with this package's engines via the factory-string mapping
 (models/nn_index/factory.py). A JSON config written for the reference
 deserializes here unchanged — the literal "switch frameworks by editing
 the plugin type name" path.
@@ -16,9 +16,9 @@ the plugin type name" path.
 Differences, all surfaced rather than silent:
 
 - ``use_gpu``/``gpu_id`` are accepted and ignored with a warning — the
-  TPU backend is always accelerator-resident, so there is no CPU/GPU
-  mode split to select (the reference raises when GPU support is absent;
-  an accelerator IS present here, just a different one).
+  JAX backend places the index on the default device, so there is no
+  CPU/GPU mode split to select (the reference raises when GPU support
+  is absent).
 - ``index_param_element`` persists the same parameter JSON the reference
   stores beside the index; on load a factory-string mismatch between the
   element and the instance logs a warning (reference behavior: the
@@ -59,7 +59,7 @@ _METRIC_LABELS = {"l2": "l2", "inner_product": "ip", "ip": "ip",
 
 class FaissNearestNeighborsIndex (NearestNeighborsIndex):
     """
-    Reference-config-compatible FAISS-wrapper adapter over the TPU-native
+    Reference-config-compatible FAISS-wrapper adapter over this package's
     index implementations.
 
     >>> import numpy as np
@@ -87,8 +87,7 @@ class FaissNearestNeighborsIndex (NearestNeighborsIndex):
     def usability_report(cls) -> dict:
         from smqtk_indexing_tpu.ops.device import device_report
         r = super().usability_report()
-        r.update(device_report(flags=(
-            "SMQTK_TPU_NO_DMA_IVF", "SMQTK_TPU_NO_FUSED")))
+        r.update(device_report())
         return r
 
     @classmethod
@@ -171,9 +170,9 @@ class FaissNearestNeighborsIndex (NearestNeighborsIndex):
             raise ValueError("ivf_nprobe must be >= 1.")
         if use_gpu:
             warnings.warn(
-                "use_gpu/gpu_id are ignored: the TPU backend is always "
-                "accelerator-resident (there is no CPU/GPU index split "
-                "to select).")
+                "use_gpu/gpu_id are ignored: the index is always "
+                "accelerator-resident on JAX's default device (there is "
+                "no CPU/GPU index split to select).")
 
         self.descriptor_set = descriptor_set if descriptor_set is not None \
             else MemoryDescriptorSet()

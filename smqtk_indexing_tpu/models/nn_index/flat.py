@@ -1,5 +1,5 @@
 """
-Exhaustive (flat) TPU nearest-neighbor index.
+Exhaustive (flat) device nearest-neighbor index.
 
 Capability-parity with the reference's FAISS 'Flat' configuration
 (/root/reference/smqtk_indexing/impls/nn_index/faiss.py:70-831, default
@@ -53,7 +53,7 @@ class FlatNearestNeighborsIndex (NearestNeighborsIndex):
     :param metric: Distance metric label; one of
         'euclidean' | 'inner_product' | 'cosine' | 'hik'.
     :param dtype: Device storage codec: 'float32' (exact), 'bfloat16'
-        (half HBM traffic; ~2x scan throughput; tiny recall cost),
+        (half the memory traffic; tiny recall cost),
         'sq8' (int8 scalar quantization, 4x capacity — the reference's
         FAISS 'SQ8' factory codec, faiss.py:190; see ops/sq8.py),
         'pq<M>' (product quantization, M bytes/vector — e.g. 'pq16' is
@@ -64,7 +64,7 @@ class FlatNearestNeighborsIndex (NearestNeighborsIndex):
     :param read_only: Refuse mutations when True.
     :param storage: 'device' keeps the database HBM-resident (fastest);
         'host_stream' keeps it in host RAM and streams blocks through the
-        chip per query batch — the >HBM capacity tier (exact results;
+        device per query batch — the beyond-device-memory capacity tier (exact results;
         float32/bfloat16 only).
 
     >>> import numpy as np
@@ -87,7 +87,7 @@ class FlatNearestNeighborsIndex (NearestNeighborsIndex):
     def is_usable(cls) -> bool:
         # Usable whenever the compute stack imports (the reference gates
         # availability on backend importability, faiss.py:86-89); HOW it
-        # runs — native TPU kernels vs interpret fallback — is reported
+        # runs — compiled GPU kernels vs interpret fallback — is reported
         # by usability_report().
         try:
             import jax  # noqa: F401
@@ -99,8 +99,7 @@ class FlatNearestNeighborsIndex (NearestNeighborsIndex):
     def usability_report(cls) -> dict:
         from smqtk_indexing_tpu.ops.device import device_report
         r = super().usability_report()
-        r.update(device_report(flags=(
-            "SMQTK_TPU_NO_FUSED", "SMQTK_TPU_NO_NATIVE")))
+        r.update(device_report(flags=("SMQTK_TPU_NO_NATIVE",)))
         return r
 
     @classmethod

@@ -1,5 +1,5 @@
 """
-IVF (inverted-file, coarse-quantized) TPU nearest-neighbor index.
+IVF (inverted-file, coarse-quantized) device nearest-neighbor index.
 
 Capability-parity with the reference's FAISS IVF configurations
 (/root/reference/smqtk_indexing/impls/nn_index/faiss.py — factory strings
@@ -72,26 +72,23 @@ class IvfNearestNeighborsIndex (NearestNeighborsIndex):
         is the CAPACITY tier: the host mirror itself is int8 codes (4x
         smaller — 12.8GB instead of 51GB at 100M x 128), persistence
         saves/reloads codes (never float originals), and queries run
-        through the tiled-transposed Pallas DMA list-scan — the same
-        single-copy device layout as the 100M demo (examples/ivf_100m.py).
+        through the tiled-transposed list scan (ops/ivf_tiled.py).
         Requires dtype='sq8' or 'pq<M>' and metric euclidean,
         inner_product or cosine (FAISS's METRIC_* axis on the same
         factory configs, faiss.py:51-67; cosine encodes L2-normalized
         rows — codes persist on the unit sphere). With 'pq<M>' the
-        mirror is (n, M) uint8 PQ codes (16 bytes/vector at PQ16 — the
-        ~800M-vectors/chip ceiling) and the scan is the in-kernel ADC
-        one-hot MXU dot (ops/pallas_ivf.ivf_query_dma_tiled_table_pq).
+        mirror is (n, M) uint8 PQ codes (16 bytes/vector at PQ16) and
+        the scan looks the per-query ADC table up per code
+        (ops/ivf_tiled.ivf_query_tiled_pq).
         The codec is trained once at build and reused by updates (FAISS
         quantizer semantics: train() fixes the codec, adds encode with
         it — faiss.py:368-386). Shards over ``n_devices``
         (parallel/sharded_ivf_code.py).
     :param rerank: Finalization for the 'code' tier. 'exact' (default)
-        fetches winners through the DMA segment gather and reports
-        distances exact w.r.t. the quantized vectors; 'score' takes
-        distances straight from the kernel surrogate (~5e-4 absolute
-        noise on unit-scale data, below the SQ8 codec step) — it removes
-        the winner-segment gather, the dominant serving cost at capacity
-        (~100 ms/batch at 100M, B=1024).
+        gathers the winners' codes and reports distances exact w.r.t.
+        the quantized vectors; 'score' takes distances straight from the
+        scan's f32 surrogate (f32 cancellation noise only, far below the
+        SQ8 codec step) and skips the winner gather.
     :param read_only: Refuse mutations when True.
     :param pq_residual: (PQ dtypes, euclidean) Encode RESIDUALS
         ``x - centroid(assigned list)`` instead of raw rows — FAISS's
@@ -124,7 +121,7 @@ class IvfNearestNeighborsIndex (NearestNeighborsIndex):
     def is_usable(cls) -> bool:
         # Usable whenever the compute stack imports (the reference gates
         # availability on backend importability, faiss.py:86-89); HOW it
-        # runs — native TPU kernels vs interpret fallback — is reported
+        # runs — compiled GPU kernels vs interpret fallback — is reported
         # by usability_report().
         try:
             import jax  # noqa: F401
@@ -136,8 +133,7 @@ class IvfNearestNeighborsIndex (NearestNeighborsIndex):
     def usability_report(cls) -> dict:
         from smqtk_indexing_tpu.ops.device import device_report
         r = super().usability_report()
-        r.update(device_report(flags=(
-            "SMQTK_TPU_NO_DMA_IVF", "SMQTK_TPU_NO_ROWS_TILED")))
+        r.update(device_report())
         return r
 
     @classmethod
@@ -286,56 +282,6 @@ class IvfNearestNeighborsIndex (NearestNeighborsIndex):
             rows_c = rows_c @ self._code_rot
         return rows_c
 
-    def _dma_eligible(self) -> bool:
-        """Use the Pallas DMA list-scan (ops/pallas_ivf.py): single real
-        TPU chip, euclidean metric, float32/bfloat16/sq8 storage (int8
-        codes DMA raw and score via the codec-folded surrogate), balanced
-        lists within the kernel's fixed DMA length (minus alignment
-        slack)."""
-        from smqtk_indexing_tpu.ops.device import tpu_kernel_enabled
-        from smqtk_indexing_tpu.ops.pallas_ivf import L_MAX
-        return (tpu_kernel_enabled("SMQTK_TPU_NO_DMA_IVF")
-                and self._mesh is None
-                and self.dtype in ("float32", "bfloat16", "sq8")
-                and self.metric == "euclidean"
-                and 0 < self._l_max_raw <= L_MAX - 32
-                and self._capacity >= L_MAX)
-
-    def _tiled_rows_ok(self) -> bool:
-        """Route rows-tier compressed configurations through the tiled
-        DMA list-scan (the capacity tier's engine) where that is the
-        measured win:
-
-        - pq/opq<M>: always on TPU — the tiled in-kernel ADC beats the
-          XLA grouped dequant scan by ~6x at Deep1M (972 vs 5988 qps
-          B=1024 nprobe=4, docs/benchmarks.md Config 3 vs the round-4
-          code-tier A/B).
-        - sq8: only when ``rerank='score'`` (score-mode finalization is
-          a tiled-only capability). With the default exact re-rank the
-          ROW-MAJOR DMA kernel is faster at <=HBM scale — same-window
-          A/B at Deep1M B=1024 (2026-08-18, one process): row-major
-          7596/5519/5417 qps vs tiled-exact 5949/4745/3802 at
-          nprobe 4/16/64 (tiled 22-30% slower; the rows tier is <=HBM
-          by construction, so there is no large-N regime to gate on).
-
-        SMQTK_TPU_NO_ROWS_TILED=1 restores the row-major device layout
-        unconditionally; SMQTK_TPU_ROWS_TILED=1 forces the routing
-        off-TPU (interpret mode — CPU parity tests)."""
-        import os
-        if self.storage != "rows" \
-                or (self.dtype != "sq8"
-                    and self._pq_m(self.dtype) is None) \
-                or self.metric != "euclidean" \
-                or (self.n_devices is not None and self.n_devices > 1) \
-                or os.environ.get("SMQTK_TPU_NO_ROWS_TILED"):
-            return False
-        if os.environ.get("SMQTK_TPU_ROWS_TILED"):
-            return True
-        if self.dtype == "sq8" and self.rerank != "score":
-            return False
-        from smqtk_indexing_tpu.ops.device import tpu_kernel_enabled
-        return tpu_kernel_enabled("SMQTK_TPU_NO_DMA_IVF")
-
     def _make_mesh(self):
         """Row-shard the list-sorted database over a device mesh (lists
         split at shard boundaries become per-shard CSR views — see
@@ -366,7 +312,6 @@ class IvfNearestNeighborsIndex (NearestNeighborsIndex):
         self._dev_first_virt = None
         self._capacity = 0
         self._l_max = 0
-        self._l_max_raw = 0
         self._n_virtual = 0
         self._max_split = 1
         self._mesh = None
@@ -518,23 +463,15 @@ class IvfNearestNeighborsIndex (NearestNeighborsIndex):
         else:
             self._upload()
 
-    def _upload_tiled(self, sq8_codes: Optional[np.ndarray] = None,
-                      sq8_ab=None,
-                      pq_codes: Optional[np.ndarray] = None,
-                      pq_cb: Optional[np.ndarray] = None,
-                      pq_rot: Optional[np.ndarray] = None) -> None:
-        """Tiled-transposed (capacity-tier) device build (engine:
-        models/nn_index/_ivf_code.upload_tiled). Two callers: the 'code'
-        tier (host mirror IS the codes) and the rows-sq8/pq TPU routing
-        (encode-on-upload views of the float32 mirror)."""
+    def _upload_tiled(self) -> None:
+        """Tiled-transposed ('code' tier) device build (engine:
+        models/nn_index/_ivf_code.upload_tiled)."""
         from smqtk_indexing_tpu.models.nn_index import _ivf_code
-        _ivf_code.upload_tiled(self, sq8_codes=sq8_codes, sq8_ab=sq8_ab,
-                               pq_codes=pq_codes, pq_cb=pq_cb,
-                               pq_rot=pq_rot)
+        _ivf_code.upload_tiled(self)
+
     def _upload(self) -> None:
         """Rows-tier device build (engine:
-        models/nn_index/_ivf_rows.upload_rows) — may ROUTE compressed
-        configurations through the tiled engine (_tiled_rows_ok)."""
+        models/nn_index/_ivf_rows.upload_rows)."""
         from smqtk_indexing_tpu.models.nn_index import _ivf_rows
         _ivf_rows.upload_rows(self)
     def _save_index(self) -> None:
@@ -695,9 +632,9 @@ class IvfNearestNeighborsIndex (NearestNeighborsIndex):
                              self._assign_host[keep])
             elif self._dev3 is not None:
                 # Poison the removed rows' surrogate stats in place: the
-                # tiled kernel scores s2 - 2<t,u>, so +inf rows can never
+                # tiled scan scores s2 - 2<t,u>, so +inf rows can never
                 # be selected (no liveness gather exists on this path).
-                from smqtk_indexing_tpu.ops.pallas_ivf import TILE_ROWS
+                from smqtk_indexing_tpu.ops.ivf_tiled import TILE_ROWS
                 r = np.asarray(rows, dtype=np.int64)
                 self._s2t = self._s2t.at[
                     r // TILE_ROWS, 0, r % TILE_ROWS].set(np.inf)
@@ -749,8 +686,7 @@ class IvfNearestNeighborsIndex (NearestNeighborsIndex):
             # jit recompiles) — and (b) nprobe_orig + a representative
             # slot per original, from which they derive the n-th-best
             # original score and zero out every budget slot beyond the
-            # eligible lists (ops/ivf.probe_eligibility; the DMA kernel
-            # skips those slots' transfers entirely). nprobe >= n_lists is
+            # eligible lists (ops/ivf.probe_eligibility). nprobe >= n_lists is
             # exhaustive: probe every virtual list (exact, the contract
             # tests rely on it).
             if self.nprobe >= self._centroids_np.shape[0]:

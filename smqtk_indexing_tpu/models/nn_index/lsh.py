@@ -8,7 +8,7 @@ code integers to UID sets, an optional ``HashIndex`` accelerates near-code
 lookup (with an on-the-fly LinearHashIndex over the KV keys as fallback,
 lsh.py:481-487), and candidates are re-ranked by exact distance.
 
-TPU-first inversions:
+Device-first inversions:
 - the per-descriptor Python hashing loop (lsh.py:316-321) is one batched
   matmul+sign program (``LshFunctor.get_hash_batch``);
 - code-int conversion is vectorized packing (utils/bits.py), not an O(bits)
@@ -122,7 +122,7 @@ class LSHNearestNeighborIndex (NearestNeighborsIndex):
     def is_usable(cls) -> bool:
         # Usable whenever the compute stack imports (the reference gates
         # availability on backend importability, faiss.py:86-89); HOW it
-        # runs — native TPU kernels vs interpret fallback — is reported
+        # runs — compiled GPU kernels vs interpret fallback — is reported
         # by usability_report().
         try:
             import jax  # noqa: F401
@@ -135,7 +135,7 @@ class LSHNearestNeighborIndex (NearestNeighborsIndex):
         from smqtk_indexing_tpu.ops.device import device_report
         r = super().usability_report()
         r.update(device_report(flags=(
-            "SMQTK_TPU_NO_MXU_HAMMING", "SMQTK_TPU_NO_NATIVE")))
+            "SMQTK_TPU_NO_LSH_FUSED", "SMQTK_TPU_NO_NATIVE")))
         return r
 
     @classmethod
@@ -410,13 +410,14 @@ class LSHNearestNeighborIndex (NearestNeighborsIndex):
             mean, proj, normalize = model
             bits = proj.shape[1]
             u = len(keys)
-            from smqtk_indexing_tpu.ops.hamming import MXU_SCAN_MIN
-            from smqtk_indexing_tpu.ops.pallas_scan import TILE_N
-            mxu_want = u >= MXU_SCAN_MIN \
-                or bool(os.environ.get("SMQTK_TPU_LSH_FUSED_MXU"))
-            # The MXU engine's fused scan needs the code table padded to
-            # the kernel tile (dead codes are +inf-masked either way).
-            u_pad = _pow2_at_least(u, lo=TILE_N if mxu_want else 8)
+            from smqtk_indexing_tpu.ops.device import TILE_N
+            from smqtk_indexing_tpu.ops.hamming import pm1_engine
+            # The state below lands on the default device, as does this
+            # probe array.
+            pm1_want = pm1_engine(u, jnp.zeros(()))
+            # The ±1 engine's two-stage scan needs the code table padded
+            # to a tile (dead codes are +inf-masked either way).
+            u_pad = _pow2_at_least(u, lo=TILE_N if pm1_want else 8)
             packed = np.zeros((u_pad, (bits + 31) // 32), dtype=np.uint32)
             packed[:u] = ints_to_packed_u32(keys, bits)
             code_valid = np.zeros(u_pad, dtype=bool)
@@ -451,14 +452,10 @@ class LSHNearestNeighborIndex (NearestNeighborsIndex):
             row_valid = np.zeros(n_pad, dtype=bool)
             row_valid[:n_rows] = True
             l_max = int(ln.max()) if u else 1
-            # ±1 bf16 mirrors for the MXU near-code engine (the same
-            # engine threshold ops/hamming.CodeStore uses: the XOR
-            # path's per-chunk running top-k is XLA-TopK-bound at large
-            # U — measured round 5: fused XOR at 1M unique codes lost
-            # to the two-dispatch path; the MXU form is the round-1
-            # 66x lesson applied inside the fused program).
-            pm1 = pm1_t = code_sq = None
-            if mxu_want:
+            # ±1 bf16 mirrors for the ±1 near-code engine (the rule
+            # ops/hamming.CodeStore uses too, ops/hamming.pm1_engine).
+            pm1 = code_sq = None
+            if pm1_want:
                 from smqtk_indexing_tpu.utils.bits import (
                     unpack_bit_vectors_u32,
                 )
@@ -467,8 +464,6 @@ class LSHNearestNeighborIndex (NearestNeighborsIndex):
                 pm1_np[:u, :bits] = unpack_bit_vectors_u32(
                     packed[:u], bits).astype(np.float32) * 2.0 - 1.0
                 pm1 = jnp.asarray(pm1_np, dtype=jnp.bfloat16)
-                pm1_t = jnp.asarray(np.ascontiguousarray(pm1_np.T),
-                                    dtype=jnp.bfloat16)
                 code_sq = jnp.asarray(
                     np.where(code_valid, float(bits), 0.0)
                     .astype(np.float32))
@@ -486,7 +481,6 @@ class LSHNearestNeighborIndex (NearestNeighborsIndex):
                 "n_codes_live": u,
                 "row2elem": elems,
                 "pm1": pm1,
-                "pm1_t": pm1_t,
                 "code_sq": code_sq,
             }
         st = self._fused
@@ -531,7 +525,7 @@ class LSHNearestNeighborIndex (NearestNeighborsIndex):
                             cand_uids.append(u)
                 cand_uids_per_q.append(cand_uids)
             # ONE storage fetch for the whole batch, regrouped per query
-            # (per-query calls measured tens of ms at serving batches).
+            # (per-query calls cost a storage round trip each).
             flat_elems = list(self.descriptor_set.get_many_descriptors(
                 [u for ul in cand_uids_per_q for u in ul]))
             cand_elems_per_q = []
@@ -605,23 +599,14 @@ class LSHNearestNeighborIndex (NearestNeighborsIndex):
         k_dev = _pow2_at_least(min(n, max(n_rows, 1)), lo=1)
         COUNTERS.add("lsh.queries", b)
         COUNTERS.add("lsh.fused_queries", b)
-        engine = "mxu" if st["pm1"] is not None else "xor"
-        if engine == "mxu":
-            import jax
-            try:
-                interp = next(
-                    iter(st["pm1"].devices())).platform != "tpu"
-            except Exception:  # pragma: no cover - exotic arrays
-                interp = jax.default_backend() != "tpu"
-        else:
-            interp = False
+        engine = "pm1" if st["pm1"] is not None else "xor"
         dists, rows = lsh_fused_query(
             st["db"], st["row_valid"], st["packed"], st["code_valid"],
             st["off"], st["ln"], jnp.asarray(q_p), st["mean"],
             st["proj"], k=k_dev, n_codes=n_codes, n_sel=n_sel,
             l_max=st["l_max"], metric=self.distance_method,
-            normalize=st["normalize"], engine=engine, interpret=interp,
-            pm1=st["pm1"], pm1_t=st["pm1_t"], code_sq=st["code_sq"])
+            normalize=st["normalize"], engine=engine,
+            pm1=st["pm1"], code_sq=st["code_sq"])
         dists = np.asarray(dists)[:b]
         rows = np.asarray(rows)[:b]
         elems = st["row2elem"]

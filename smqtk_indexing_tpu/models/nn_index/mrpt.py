@@ -1,5 +1,5 @@
 """
-MRPT (Multiple Random Projection Trees) TPU nearest-neighbor index.
+MRPT (Multiple Random Projection Trees) device nearest-neighbor index.
 
 Capability-parity with the reference's ``MRPTNearestNeighborsIndex``
 (/root/reference/smqtk_indexing/impls/nn_index/mrpt.py:42-533, Hyvönen et
@@ -7,7 +7,7 @@ al. arXiv:1509.06957): same tunables (``num_trees``, ``depth``,
 ``random_seed``, ``read_only``), same update/remove = full-rebuild semantics
 (mrpt.py:428-442), same examined-points math (≈ num_trees * N / 2^depth).
 
-TPU-first inversions (see ops/mrpt.py): whole-database projection is one
+Device-first inversions (see ops/mrpt.py): whole-database projection is one
 streamed einsum; query descent/union/re-rank is one fused device program;
 persistence is npz bytes into a DataElement instead of pickled TreeElement
 files (mrpt.py:364-401).
@@ -66,7 +66,7 @@ class MRPTNearestNeighborsIndex (NearestNeighborsIndex):
     def is_usable(cls) -> bool:
         # Usable whenever the compute stack imports (the reference gates
         # availability on backend importability, faiss.py:86-89); HOW it
-        # runs — native TPU kernels vs interpret fallback — is reported
+        # runs — compiled GPU kernels vs interpret fallback — is reported
         # by usability_report().
         try:
             import jax  # noqa: F401
@@ -78,8 +78,7 @@ class MRPTNearestNeighborsIndex (NearestNeighborsIndex):
     def usability_report(cls) -> dict:
         from smqtk_indexing_tpu.ops.device import device_report
         r = super().usability_report()
-        r.update(device_report(flags=(
-            "SMQTK_TPU_NO_MRPT_MIRROR", "SMQTK_TPU_NO_NATIVE")))
+        r.update(device_report(flags=("SMQTK_TPU_NO_NATIVE",)))
         return r
 
     @classmethod
@@ -159,12 +158,6 @@ class MRPTNearestNeighborsIndex (NearestNeighborsIndex):
         self._dev_leaf_local = None
         self._dev_off_local = None
         self._leaf_max_sh = 0
-        # leaf-ordered SQ8 mirror state (TPU fast path; ops/mrpt
-        # .mrpt_query_mirror)
-        self._mirror = None
-        self._mir_a = None
-        self._mir_b = None
-        self._leaf_flat = None
 
     def get_config(self) -> Dict[str, Any]:
         c = self.get_default_config()
@@ -235,14 +228,6 @@ class MRPTNearestNeighborsIndex (NearestNeighborsIndex):
         self._save_index()
 
     def _upload(self, mat_p: np.ndarray, n: int) -> None:
-        # Any prior leaf-ordered mirror is laid out for the OLD tree
-        # tables; clear it unconditionally (including on the mesh branch
-        # and when _maybe_build_mirror's gate declines to rebuild) so a
-        # stale mirror can never be scanned against new leaf offsets.
-        self._mirror = None
-        self._mir_a = None
-        self._mir_b = None
-        self._leaf_flat = None
         self._capacity = mat_p.shape[0]
         sq = np.zeros(self._capacity, dtype=np.float32)
         sq[:n] = np.einsum("ij,ij->i", self._host, self._host)
@@ -280,42 +265,6 @@ class MRPTNearestNeighborsIndex (NearestNeighborsIndex):
         self._dev_splits = jnp.asarray(self._splits_np)
         self._dev_leaf = jnp.asarray(leaf_pad)
         self._dev_offsets = jnp.asarray(self._offsets_np)
-        self._maybe_build_mirror(leaf_pad, n)
-
-    #: Mirror residency budget (bytes): T leaf-ordered int8 copies.
-    MIRROR_BUDGET = 8 << 30
-
-    def _maybe_build_mirror(self, leaf_pad: np.ndarray, n: int) -> None:
-        """Per-tree leaf-ordered SQ8 mirrors (heavy-config fast path):
-        candidate fetches become contiguous block DMAs through the shared
-        list-scan kernel instead of scattered f32 row gathers — the
-        measured cost center at GIST t32/d6. Int8 costs T bytes/dim of
-        extra residency; SMQTK_TPU_NO_MRPT_MIRROR=1 disables."""
-        from smqtk_indexing_tpu.ops.device import tpu_kernel_enabled
-        from smqtk_indexing_tpu.ops.pallas_ivf import L_MAX
-        d_pad = self._bases_np.shape[1]
-        # Gate on the ACTUAL placement of the uploaded arrays, not just
-        # the default backend: tests (and users) may pin computation to
-        # CPU via jax.default_device while the default backend is still
-        # the TPU — the Pallas kernel cannot run there.
-        try:
-            on_tpu = next(iter(self._dev.devices())).platform == "tpu"
-        except Exception:  # pragma: no cover - exotic array types
-            on_tpu = False
-        if not (tpu_kernel_enabled("SMQTK_TPU_NO_MRPT_MIRROR")
-                and on_tpu
-                and self._capacity >= L_MAX
-                and self.num_trees * self._capacity * d_pad
-                <= self.MIRROR_BUDGET):
-            return
-        from smqtk_indexing_tpu.ops import sq8 as sq8_ops
-        self._mir_a, self._mir_b, codes_dev, _, _ = \
-            sq8_ops.sq8_build_store(
-                self._host, np.ones(n, dtype=bool), self._capacity,
-                d_pad, self._dim)
-        self._leaf_flat = jnp.asarray(
-            leaf_pad.reshape(-1).astype(np.int32))
-        self._mirror = jnp.take(codes_dev, self._leaf_flat, axis=0)
 
     # ------------------------------------------------------------------
     # persistence
@@ -476,16 +425,6 @@ class MRPTNearestNeighborsIndex (NearestNeighborsIndex):
                     self._dev_leaf_local, self._dev_off_local,
                     replicate(self._mesh, jnp.asarray(q_p)), k=k_dev,
                     depth=self._depth_eff, leaf_max=self._leaf_max_sh)
-            elif self._mirror is not None and k_dev <= 64:
-                # Leaf-mirror DMA path (large k falls back: its selection
-                # margin scales k * num_trees).
-                from smqtk_indexing_tpu.ops.mrpt import mrpt_query_mirror
-                dists, rows = mrpt_query_mirror(
-                    self._dev, self._dev_sq, self._dev_bases,
-                    self._dev_splits, self._mirror, self._mir_a,
-                    self._mir_b, self._leaf_flat, self._dev_offsets,
-                    jnp.asarray(q_p), k=k_dev, depth=self._depth_eff,
-                    leaf_max=self._leaf_max)
             else:
                 dists, rows = mrpt_query(
                     self._dev, self._dev_sq, self._dev_valid,

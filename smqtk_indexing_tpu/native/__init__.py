@@ -30,7 +30,7 @@ _tried = False
 
 def _build_dir() -> str:
     d = os.environ.get("SMQTK_TPU_NATIVE_CACHE") or os.path.join(
-        tempfile.gettempdir(), "smqtk_tpu_native")
+        tempfile.gettempdir(), "smqtk_native")
     os.makedirs(d, exist_ok=True)
     return d
 

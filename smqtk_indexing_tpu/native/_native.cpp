@@ -1,7 +1,7 @@
 // Host-side native runtime for smqtk_indexing_tpu.
 //
 // The reference delegated all native compute to external C++ libraries
-// (FAISS / FLANN / sklearn — SURVEY.md §2.6). In the TPU build the heavy
+// (FAISS / FLANN / sklearn — SURVEY.md §2.6). In this build the heavy
 // compute lives on-device; what remains genuinely hot on the HOST are the
 // glue paths this file serves:
 //

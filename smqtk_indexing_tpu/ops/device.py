@@ -1,14 +1,14 @@
 """
-Device/layout helpers shared by all kernels: TPU-friendly padding (lane dim
-128, sublane 8), capacity scheduling for growable device arrays, and dtype
-policy.
+Device/layout helpers shared by all kernels: padding of the feature dim to
+a multiple of 128 (the tensor-core-friendly width every kernel tiles by),
+capacity scheduling for growable device arrays, and the one decision on
+how the Pallas kernels run (compiled on a GPU, interpreted on the CPU).
 """
 from __future__ import annotations
 
 import numpy as np
 
 LANE = 128
-SUBLANE = 8
 
 # Row-capacity quantum: device row counts are always 1024 * 2^m so any two
 # capacities (and the scan chunk size) divide each other — keeps the jit
@@ -44,7 +44,7 @@ def pow2_at_least(x: int, lo: int = 1) -> int:
 
 
 def pad_dim(d: int) -> int:
-    """Pad feature dim to a multiple of the TPU lane width (128).
+    """Pad feature dim to a multiple of 128.
 
     >>> pad_dim(100)
     128
@@ -77,40 +77,65 @@ def pad_rows_np(mat: np.ndarray, rows: int, cols: int,
     return out
 
 
-def stage1_precision() -> str:
-    """Stage-1 dot mode for the fused flat scan (ops/pallas_scan.PRECISIONS):
-    'split3' by default (3-pass split-bf16, ~1e-5 relative score noise vs
-    a k+8 segment margin); SMQTK_TPU_STAGE1=highest|split3|native
-    overrides ('highest' = provably exact Mosaic f32 lowering, ~5x the
-    cost; 'native' = raw bf16 pass, only safe for bf16-stored data)."""
-    import os
-    v = os.environ.get("SMQTK_TPU_STAGE1", "split3")
-    if v not in ("native", "split3", "highest"):
-        # Exactness-sensitive users must not silently get the
-        # approximate default off a typo.
-        raise ValueError(
-            f"SMQTK_TPU_STAGE1={v!r}: must be one of "
-            "'native' | 'split3' | 'highest'.")
-    return v
+#: Database rows per tile of the tiled layouts and the fused scan's
+#: row-capacity quantum (capacities are 1024 * 2^m, so every capacity at
+#: or above it divides evenly).
+TILE_N = 4096
+
+#: Segment width: rows that collapse to one stage-1 minimum in the
+#: two-stage exact scans (ops/scan.streamed_segment_minima).
+SEG = 128
+
+
+def kernel_interpret(x) -> bool:
+    """The one decision on how a Pallas kernel runs, taken from where its
+    operands live (``x``: a ``jax.Array``, sharded or not):
+
+    - ``gpu`` — compiled for the card (returns False);
+    - ``cpu`` — the Pallas interpreter (returns True; what the tests run);
+    - anything else — ``ValueError``: there is no kernel for it and no
+      silent fallback.
+
+    Call it outside ``jit`` (tracers carry no placement) and pass the
+    result down as the kernels' static ``interpret`` argument.
+    """
+    platform = next(iter(x.devices())).platform
+    if platform == "gpu":
+        return False
+    if platform == "cpu":
+        return True
+    raise ValueError(
+        f"No Pallas kernel tier for platform {platform!r}: the kernels "
+        "compile for 'gpu' and interpret on 'cpu'.")
+
+
+def on_gpu(x) -> bool:
+    """True when ``x`` (a ``jax.Array``) lives on a GPU. The routing gates
+    use it to choose the paths measured faster on the card (the two-stage
+    flat scan, the ±1 Hamming engine); the CPU keeps the streaming XLA
+    scans."""
+    return next(iter(x.devices())).platform == "gpu"
 
 
 def kernel_tier() -> str:
-    """Which tier the Pallas compute kernels run at in this process:
+    """Which tier the compute kernels run at in this process:
 
-    - ``"tpu-pallas"`` — the default backend is a real TPU; the DMA/MXU
-      kernels run natively (the production configuration).
-    - ``"cpu-interpret"`` — no TPU; the identical programs execute
-      through the Pallas interpreter / XLA-CPU fallbacks. Correct, and
-      what CI exercises, but orders of magnitude slower — a service
-      operator should not serve traffic from this tier.
-    - ``"unavailable"`` — jax itself failed to initialize a backend.
+    - ``"gpu-triton"`` — the default backend is a CUDA GPU; the Pallas
+      kernels compile through Triton.
+    - ``"cpu-interpret"`` — the CPU backend; the kernels execute through
+      the Pallas interpreter.
+      Correct, and what CI exercises, but a service operator should not
+      serve traffic from this tier.
+    - ``"unavailable"`` — jax failed to initialize a backend, or the
+      backend is one the kernels do not support.
     """
     try:
         import jax
-        return "tpu-pallas" if jax.default_backend() == "tpu" \
-            else "cpu-interpret"
+        backend = jax.default_backend()
     except Exception:  # pragma: no cover - broken jax install
         return "unavailable"
+    return {"gpu": "gpu-triton", "cpu": "cpu-interpret"}.get(
+        backend, "unavailable")
 
 
 def device_report(flags: tuple = ()) -> dict:
@@ -120,11 +145,11 @@ def device_report(flags: tuple = ()) -> dict:
     imports but may be DEGRADED — this is the distinguishing signal).
 
     :param flags: env-var kill switches relevant to the caller (e.g.
-        ``("SMQTK_TPU_NO_FUSED",)``); any that are set are reported and
+        ``("SMQTK_TPU_NO_NATIVE",)``); any that are set are reported and
         mark the impl degraded.
     :return: dict with ``backend``, ``devices``, ``kernel_tier``,
         ``disabled_flags`` and the summary bool ``degraded`` (True when
-        not running the native TPU kernel tier or any engine is
+        the kernels are not compiled for a GPU or any engine is
         flag-disabled).
     """
     import os
@@ -141,18 +166,5 @@ def device_report(flags: tuple = ()) -> dict:
         "devices": n_dev,
         "kernel_tier": tier,
         "disabled_flags": disabled,
-        "degraded": tier != "tpu-pallas" or bool(disabled),
+        "degraded": tier != "gpu-triton" or bool(disabled),
     }
-
-
-def tpu_kernel_enabled(env_flag: str) -> bool:
-    """Shared gate for optional TPU-only kernels: not disabled by the given
-    env var, and the default jax backend is a real TPU."""
-    import os
-    if os.environ.get(env_flag):
-        return False
-    try:
-        import jax
-        return jax.default_backend() == "tpu"
-    except Exception:  # pragma: no cover
-        return False

@@ -1,11 +1,11 @@
 """
 Packed-code Hamming distance kernels and the device-resident code store.
 
-TPU-native replacement for the reference's big-int Hamming scan
+Device-resident replacement for the reference's big-int Hamming scan
 (/root/reference/smqtk_indexing/impls/hash_index/linear.py:231-244 —
 ``heapq.nsmallest`` over ``bin(i ^ j).count('1')``,
 utils/metrics.py:140-155): hash codes are stored as ``(N, ceil(bits/32))``
-uint32 packed matrices resident in HBM, and a query is one fused
+uint32 packed matrices resident in device memory, and a query is one fused
 XOR + ``lax.population_count`` + row-sum + ``top_k`` XLA program. A
 ``lax.scan`` streams row blocks for large N so the full (B, N) distance
 matrix is never materialized (same streaming-top-k shape as ops/scan.py).
@@ -36,14 +36,23 @@ DEFAULT_CHUNK = 262144
 #: available) beats the device program's launch/transfer latency.
 HOST_SCAN_MAX = 2048
 
-#: Above this many codes on a real TPU, Hamming queries ride the MXU via a
-#: ±1 bfloat16 representation (see CodeStore._mxu_eligible): squared
-#: Euclidean distance between ±1 vectors is exactly 4x the Hamming
-#: distance, so the fused flat-scan kernel (ops/pallas_scan.py) serves hash
-#: lookups too — XOR+popcount is VPU-bound and materializes (B, chunk)
-#: score blocks, while the MXU form streams at matmul speed. ±1 values and
-#: f32 accumulation are exact in bfloat16, so results are exact integers.
-MXU_SCAN_MIN = 16384
+#: From this many codes on a GPU, Hamming queries run as a ±1 bfloat16
+#: product (see pm1_engine): squared Euclidean distance between ±1 vectors
+#: is exactly 4x the Hamming distance, so the two-stage flat scan
+#: (ops/scan.flat_topk_two_stage) serves hash lookups as bf16 products on
+#: the tensor cores, where XOR+popcount streams (B, chunk) integer score
+#: blocks through a running top-k (measured slower at 1M x 256 bits,
+#: PERF.md). ±1 values and f32 accumulation are exact, so results are
+#: exact integers.
+PM1_SCAN_MIN = 16384
+
+
+def pm1_engine(n_codes: int, x) -> bool:
+    """The one rule choosing the ±1 engine over XOR-popcount, shared by
+    CodeStore and the fused LSH query (ops/lsh_fused.py): ``n_codes`` at
+    least PM1_SCAN_MIN and the codes (``x``) on a GPU."""
+    from smqtk_indexing_tpu.ops.device import on_gpu
+    return n_codes >= PM1_SCAN_MIN and on_gpu(x)
 
 #: Sentinel distance for invalid (masked / padded) rows. Larger than any
 #: real Hamming distance (codes are at most a few thousand bits).
@@ -118,7 +127,7 @@ class CodeStore:
         """
         :param mesh: Optional 1-D ``jax.sharding.Mesh`` — packed codes
             row-shard across it and queries run the per-shard Hamming scan
-            + ICI all-gather merge (parallel/sharded_scan.py).
+            + k-sized all-gather merge (parallel/sharded_scan.py).
         """
         self._lock = threading.RLock()
         self._bits = bit_length
@@ -136,8 +145,7 @@ class CodeStore:
         self._n_live = 0
         self._dev = None
         self._dev_valid = None
-        self._dev_pm1 = None     # (cap, bits_pad) bf16 ±1 (MXU mirror)
-        self._dev_pm1_t = None   # transposed mirror for the fused kernel
+        self._dev_pm1 = None     # (cap, bits_pad) bf16 ±1 mirror
         self._dev_pm1_sq = None  # (cap,) f32 squared norms (= bits)
         self._capacity = 0
         self._bits = bits
@@ -286,7 +294,7 @@ class CodeStore:
         valid[:n] = self._valid_host
         self._dev = jnp.asarray(padded)
         self._dev_valid = jnp.asarray(valid)
-        self._dev_pm1 = self._dev_pm1_t = self._dev_pm1_sq = None
+        self._dev_pm1 = self._dev_pm1_sq = None
         if self._mesh is not None:
             from smqtk_indexing_tpu.parallel.mesh import shard_rows
             self._dev = shard_rows(self._mesh, self._dev)
@@ -299,9 +307,9 @@ class CodeStore:
             self._dev_valid,
             jnp.ones(packed.shape[0], dtype=bool), (start,))
         if self._dev_pm1 is not None:
-            # Incremental append into the ±1 mirrors: only the new rows are
+            # Incremental append into the ±1 mirror: only the new rows are
             # unpacked (a full mirror rebuild is O(cap * bits) host work +
-            # two whole-matrix HBM uploads per mutation).
+            # a whole-matrix upload per mutation).
             n_new = packed.shape[0]
             bits_pad = self._dev_pm1.shape[1]
             block = np.zeros((n_new, bits_pad), dtype=np.float32)
@@ -310,10 +318,6 @@ class CodeStore:
             self._dev_pm1 = jax.lax.dynamic_update_slice(
                 self._dev_pm1, jnp.asarray(block, dtype=jnp.bfloat16),
                 (start, 0))
-            self._dev_pm1_t = jax.lax.dynamic_update_slice(
-                self._dev_pm1_t,
-                jnp.asarray(np.ascontiguousarray(block.T),
-                            dtype=jnp.bfloat16), (0, start))
             self._dev_pm1_sq = jax.lax.dynamic_update_slice(
                 self._dev_pm1_sq,
                 jnp.full(n_new, float(self._bits), jnp.float32), (start,))
@@ -327,15 +331,10 @@ class CodeStore:
             self._dev_valid = shard_rows(self._mesh, self._dev_valid)
 
     # ------------------------------------------------------------------
-    # MXU (±1 matmul) mirror
+    # ±1 (matmul) mirror
     # ------------------------------------------------------------------
-    def _mxu_eligible(self) -> bool:
-        from smqtk_indexing_tpu.ops.device import tpu_kernel_enabled
-        from smqtk_indexing_tpu.ops.pallas_scan import TILE_N
-        return (tpu_kernel_enabled("SMQTK_TPU_NO_MXU_HAMMING")
-                and self._mesh is None
-                and self._capacity >= MXU_SCAN_MIN
-                and self._capacity % TILE_N == 0)
+    def _pm1_eligible(self) -> bool:
+        return self._mesh is None and pm1_engine(self._capacity, self._dev)
 
     def _ensure_pm1(self) -> None:
         """Build the ±1 bfloat16 mirror lazily (cap, bits padded to 128)."""
@@ -348,27 +347,22 @@ class CodeStore:
         sq = np.zeros(self._capacity, dtype=np.float32)
         sq[:self._host.shape[0]] = float(self._bits)
         self._dev_pm1 = jnp.asarray(pm1, dtype=jnp.bfloat16)
-        self._dev_pm1_t = jnp.asarray(
-            np.ascontiguousarray(pm1.T), dtype=jnp.bfloat16)
         self._dev_pm1_sq = jnp.asarray(sq)
 
-    def _knn_mxu(self, q_bool: np.ndarray, k_dev: int, pm1, pm1_t,
+    def _knn_pm1(self, q_bool: np.ndarray, k_dev: int, pm1,
                  pm1_sq, dev_valid) -> Tuple[np.ndarray, np.ndarray]:
-        """Hamming top-k through the fused flat-scan kernel on ±1 codes
-        (all device arrays are caller-snapshotted under the store lock)."""
-        from smqtk_indexing_tpu.ops.pallas_scan import flat_topk_fused
+        """Hamming top-k through the two-stage flat scan on ±1 codes (all
+        device arrays are caller-snapshotted under the store lock)."""
+        from smqtk_indexing_tpu.ops.scan import flat_topk_two_stage
         b = q_bool.shape[0]
         b_pad = _pow2_at_least(b, 8)
         bits_pad = pm1.shape[1]
         qp = np.zeros((b_pad, bits_pad), dtype=np.float32)
         qp[:b, :self._bits] = q_bool * 2.0 - 1.0
-        # Interpret mode off-TPU lets tests exercise this path on CPU.
         # pm1 is bf16, so the f32 stage 2 gathers bf16-sized segments and
-        # casts in-register — exact for ±1 values, no mirror needed.
-        interpret = jax.default_backend() != "tpu"
-        d, rows = flat_topk_fused(pm1, pm1_sq, dev_valid,
-                                  jnp.asarray(qp), k=k_dev, db_t=pm1_t,
-                                  interpret=interpret)
+        # casts in-register — exact for ±1 values.
+        d, rows = flat_topk_two_stage(pm1, pm1_sq, dev_valid,
+                                      jnp.asarray(qp), k=k_dev)
         d = np.asarray(d)
         rows = np.asarray(rows)
         # d = sqrt(4 * hamming) exactly; recover integer distances.
@@ -401,13 +395,11 @@ class CodeStore:
             cap = self._capacity
             bits = self._bits
             host_rows = host.shape[0]
-            use_mxu = self._mxu_eligible() and host_rows > HOST_SCAN_MAX \
-                and self._mesh is None
-            if use_mxu:
+            use_pm1 = self._pm1_eligible() and host_rows > HOST_SCAN_MAX
+            if use_pm1:
                 self._ensure_pm1()
-                pm1, pm1_t, pm1_sq = (self._dev_pm1, self._dev_pm1_t,
-                                      self._dev_pm1_sq)
-                mxu_valid = self._dev_valid
+                pm1, pm1_sq = self._dev_pm1, self._dev_pm1_sq
+                pm1_valid = self._dev_valid
         q_bool = np.atleast_2d(np.asarray(q_bool)).astype(bool)
         if q_bool.shape[1] != bits:
             raise ValueError(
@@ -438,10 +430,10 @@ class CodeStore:
             from smqtk_indexing_tpu import native
             dists, rows = native.hamming_topk(
                 host, h_valid, q_packed[:b], k_eff)
-        elif use_mxu:
+        elif use_pm1:
             k_dev = min(_pow2_at_least(k_eff), cap)
-            dists, rows = self._knn_mxu(q_bool, k_dev, pm1, pm1_t, pm1_sq,
-                                        mxu_valid)
+            dists, rows = self._knn_pm1(q_bool, k_dev, pm1, pm1_sq,
+                                        pm1_valid)
             dists = dists[:b, :k_eff]
             rows = rows[:b, :k_eff]
         else:

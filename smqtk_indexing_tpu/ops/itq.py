@@ -22,10 +22,10 @@ import jax.numpy as jnp
 
 def _polar(m: jnp.ndarray, steps: int = 16) -> jnp.ndarray:
     """
-    Orthogonal polar factor via Newton–Schulz iteration — pure MXU matmuls.
+    Orthogonal polar factor via Newton–Schulz iteration — pure matmuls.
 
-    ``jnp.linalg.svd`` per ITQ iteration is pathologically slow on TPU (QR
-    iteration lowers poorly); the polar factor is all the rotation update
+    A ``jnp.linalg.svd`` per ITQ iteration is an iterative decomposition
+    on the device; the polar factor is all the rotation update
     needs, and Newton–Schulz (X <- 1.5X - 0.5 X Xᵀ X, converging for
     spectral norm < sqrt(3); guaranteed here by Frobenius pre-scaling)
     replaces each SVD with ~16 small matmuls.

@@ -1,11 +1,11 @@
 """
 IVF (inverted-file) list-scan query kernel.
 
-TPU-native equivalent of FAISS's IVF search with ``nprobe``
+Device-resident equivalent of FAISS's IVF search with ``nprobe``
 (/root/reference/smqtk_indexing/impls/nn_index/faiss.py:715-749): the
 database is laid out sorted by coarse-cluster id so every inverted list is a
 contiguous row range (CSR layout: per-list offset + length). A query batch
-scores the centroid matrix on the MXU, selects the top-``nprobe`` lists,
+scores the centroid matrix with one matrix product, selects the top-``nprobe`` lists,
 gathers the (padded) candidate row blocks, scores them with the same
 monotone surrogates as the flat scan, and finishes with the fused exact
 re-rank of the k winners (ops/scan._exact_selected) — the reference's
@@ -114,8 +114,8 @@ def ivf_query(db: jnp.ndarray, db_sq: jnp.ndarray, db_norm: jnp.ndarray,
     c_dt = jnp.float32 if dq is not None else db.dtype
     c = centroids.astype(c_dt)
     c_sq = jnp.sum(c.astype(jnp.float32) * c.astype(jnp.float32), axis=-1)
-    # precision=HIGHEST: see ops/scan._chunk_scores — default TPU f32
-    # matmuls truncate to bf16 and corrupt score rankings.
+    # precision=HIGHEST: see ops/scan._chunk_scores — default-precision
+    # f32 products may run in TF32 and corrupt score rankings.
     ip_c = jnp.dot(q.astype(c_dt), c.T,
                    preferred_element_type=jnp.float32,
                    precision=jax.lax.Precision.HIGHEST)
@@ -193,7 +193,7 @@ def ivf_query_pq(codes: jnp.ndarray, codebooks: jnp.ndarray,
     IVF list-scan over PRODUCT-QUANTIZED codes — the reference's
     'IVF<n>,PQ<M>' factory configuration (faiss.py:190): same CSR probe
     selection as :func:`ivf_query`, but the database is (N, M) uint8 PQ
-    codes dequantized per probed list via the one-hot MXU formulation
+    codes dequantized per probed list via the one-hot matmul formulation
     (ops/pq._dequant; no ADC table gathers). Probed lists stream through
     a ``lax.scan`` with a running top-(k+8); the winners re-rank exactly
     from f32-decoded rows, so reported distances are exact w.r.t. the
@@ -255,7 +255,7 @@ def ivf_query_pq(codes: jnp.ndarray, codebooks: jnp.ndarray,
     kk = min(k + 8, nprobe * l_max)  # margin absorbs bf16 decode noise
     # Probes stream through the scan in GROUPS: one probe per step makes
     # every dequant matmul tiny and pays the scan/gather fixed cost
-    # nprobe times — grouping widens the one-hot MXU dots and the ip
+    # nprobe times — grouping widens the one-hot dots and the ip
     # contraction by 8x per step (the per-step candidate block stays
     # ~l_max*8 rows, well under the streamed-scan chunk budget).
     group = 1
@@ -278,7 +278,7 @@ def ivf_query_pq(codes: jnp.ndarray, codebooks: jnp.ndarray,
         cj = jnp.take(codes, rows_c, axis=0)              # (B, GL, M)
         x = _dequant(cj.reshape(b * g_l, m_sub),
                      codebooks).reshape(b, g_l, -1)       # f32 of bf16 cb
-        # Batched MXU contraction (bf16 operands, f32 accumulation); the
+        # Batched contraction (bf16 operands, f32 accumulation); the
         # decode noise is already bf16-level and the winners re-rank
         # exactly, so the bf16 query rounding adds nothing new.
         ip = jnp.einsum("bld,bd->bl", x.astype(jnp.bfloat16),

@@ -1,10 +1,10 @@
 """
 Device-side k-means (Lloyd) training and assignment.
 
-This is the TPU-native replacement for the coarse-quantizer training the
+This is the device-resident replacement for the coarse-quantizer training the
 reference delegates to FAISS C++ (``faiss_index.train``,
 /root/reference/smqtk_indexing/impls/nn_index/faiss.py:516): assignment is a
-chunked (rows-streamed) matmul against the centroid matrix on the MXU, and
+chunked (rows-streamed) matmul against the centroid matrix, and
 the centroid update is a segment-sum — both inside one jitted program with
 the Lloyd loop under ``lax.fori_loop``. The (N, C) distance matrix is never
 materialized whole; a ``lax.scan`` streams row blocks.
@@ -41,8 +41,9 @@ def _assign_block(x: jnp.ndarray, x_sq: jnp.ndarray, c: jnp.ndarray,
                   c_sq: jnp.ndarray) -> jnp.ndarray:
     """(B, d) rows -> (B,) nearest-centroid ids (L2; ||x||² constant omitted
     from the argmin)."""
-    # precision=HIGHEST: see ops/scan._chunk_scores — default TPU f32
-    # matmuls truncate to bf16, which scrambles nearest-centroid argmins.
+    # precision=HIGHEST: see ops/scan._chunk_scores — default-precision
+    # f32 products may run in TF32, which scrambles nearest-centroid
+    # argmins.
     ip = jnp.dot(x, c.T, preferred_element_type=jnp.float32,
                  precision=jax.lax.Precision.HIGHEST)
     return jnp.argmin(c_sq[None, :] - 2.0 * ip, axis=1).astype(jnp.int32)
@@ -103,8 +104,8 @@ def kmeans_lloyd(x: jnp.ndarray, valid: jnp.ndarray, init: jnp.ndarray, *,
         # large cluster's centroid (rank-r empty takes the rank-r
         # largest donor, cycling), so mass cannot pile into mega-lists
         # when the init under-covers the data — without this, a skewed
-        # init leaves duplicate dead centroids and 100x-mean lists
-        # (measured at the 100M IVF build).
+        # init leaves duplicate dead centroids and mega-lists many times
+        # the mean.
         empty = counts <= 0
         donors = jnp.argsort(-counts)
         rank = jnp.cumsum(empty.astype(jnp.int32)) - 1

@@ -1,12 +1,12 @@
 """
 MRPT (Multiple Random Projection Trees) kernels and tree construction.
 
-TPU-native re-design of the reference's MRPT implementation
+Device-first re-design of the reference's MRPT implementation
 (/root/reference/smqtk_indexing/impls/nn_index/mrpt.py, after Hyvönen et
 al., arXiv:1509.06957):
 
 - Projection of the whole database against every tree's basis is ONE batched
-  einsum on the MXU (the reference streams 5000-row host chunks through
+  einsum (the reference streams 5000-row host chunks through
   numpy, mrpt.py:243-267).
 - Trees are balanced median splits, stored as packed heap-order split arrays
   (children of node i at 2i+1 / 2i+2 — the same packed layout idea as the
@@ -116,7 +116,7 @@ def _candidate_topk(db: jnp.ndarray, db_sq: jnp.ndarray, q: jnp.ndarray,
     :return: ((B, k_inner) ascending surrogate scores, (B, k_inner) rows).
         When B * M * d exceeds ``_STREAM_ELEMS`` the (B, M, d) gather
         streams in M-chunks with a running top-k merge (identical scores;
-        keeps GIST-scale tree unions within HBM).
+        keeps GIST-scale tree unions within device memory).
     """
     b, m = rows_u.shape
     d = db.shape[1]
@@ -127,13 +127,13 @@ def _candidate_topk(db: jnp.ndarray, db_sq: jnp.ndarray, q: jnp.ndarray,
         cand = jnp.take(db, rows_c, axis=0)
         mc = cand.shape[1]
         if use_cohort:
-            # Candidate scoring as a COHORT dense matmul (the flat
-            # stage-2 trick, ops/pallas_scan.py): a per-query matvec
-            # (einsum bmd,bd->bm) lowers to a slow VPU reduce; scoring
-            # each 32-query cohort against its pooled candidates in ONE
-            # bf16 MXU dot trades 32x redundant FLOPs for ~100x idle MXU
-            # headroom. bf16 surrogate noise is absorbed by the k+16 row
-            # margin callers carry plus the exact final re-rank.
+            # Candidate scoring as a COHORT dense matmul: a per-query
+            # matvec (einsum bmd,bd->bm) is a bandwidth-bound reduce;
+            # scoring each 32-query cohort against its pooled candidates
+            # in ONE bf16 matrix product trades 32x redundant FLOPs for
+            # tensor-core throughput. bf16 surrogate noise is absorbed
+            # by the k+16 row margin callers carry plus the exact final
+            # re-rank.
             nc = b // cohort
             g = cand.astype(jnp.bfloat16).reshape(nc, cohort * mc, d)
             qs = q.astype(jnp.bfloat16).reshape(nc, cohort, d)
@@ -263,9 +263,9 @@ def mrpt_query(db: jnp.ndarray, db_sq: jnp.ndarray, valid: jnp.ndarray,
     alive = (rows_sorted < n) & ~dup
     rows_u = jnp.clip(rows_sorted, 0, n - 1)
 
-    # k+16 row margin: surrogate selection may run in bf16 (cohort MXU
-    # path); the margin plus the exact re-rank keep the reported top-k
-    # exact under the same error budget as the flat bf16 stage 2.
+    # k+16 row margin: surrogate selection may run in bf16 (cohort
+    # matmul path); the margin plus the exact re-rank keep the reported
+    # top-k exact.
     k_sel = min(k + 16, m)
     top_scores, top_rows = _candidate_topk(db, db_sq, q, rows_u, alive,
                                            k_sel)
@@ -279,123 +279,4 @@ def mrpt_query(db: jnp.ndarray, db_sq: jnp.ndarray, valid: jnp.ndarray,
             [d_fin, jnp.full((b, pad), jnp.inf, jnp.float32)], axis=1)
         r_fin = jnp.concatenate(
             [r_fin, jnp.full((b, pad), -1, jnp.int32)], axis=1)
-    return d_fin[:, :k], r_fin[:, :k]
-
-
-@partial(jax.jit, static_argnames=("k", "depth", "leaf_max", "interpret"))
-def mrpt_query_mirror(db: jnp.ndarray, db_sq: jnp.ndarray,
-                      bases: jnp.ndarray, splits: jnp.ndarray,
-                      mirror: jnp.ndarray, mir_a: jnp.ndarray,
-                      mir_b: jnp.ndarray, leaf_flat: jnp.ndarray,
-                      offsets: jnp.ndarray, q: jnp.ndarray, *, k: int,
-                      depth: int, leaf_max: int, interpret: bool = False
-                      ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """
-    MRPT query over per-tree LEAF-ORDERED SQ8 mirrors: every (query,
-    tree) candidate fetch is a CONTIGUOUS block DMA through the shared
-    row-major list-scan kernel (ops/pallas_ivf.ivf_list_scores) instead
-    of a scattered row gather over the f32 database — the gather was the
-    measured cost center of heavy configs (t32/d6 GIST). Candidate SET
-    is identical to :func:`mrpt_query` (same leaves); the top-k
-    selection inside the union runs on quantized scores with a k+8
-    margin, then winners re-rank exactly from the raw f32 rows, so
-    reported distances are exact and selection noise is bounded by the
-    SQ8 codec at the rank-k boundary (the same error contract as
-    ops/sq8.sq8_topk).
-
-    :param mirror: (T * capacity, d) int8 — tree t's SQ8 codes in leaf
-        order at rows [t * capacity, t * capacity + n).
-    :param mir_a/mir_b: (d,) SQ8 codec (padding dims epsilon/0).
-    :param leaf_flat: (T * capacity,) int32 mirror row -> original row.
-    :param offsets: (2^depth + 1,) shared leaf boundaries (rows in
-        [0, n]).
-    :return: (dists (B, k) ascending, rows (B, k) int32; +inf/-1 pads).
-    """
-    from smqtk_indexing_tpu.ops.pallas_ivf import (
-        L_MAX, PROBES_PER_STEP, ivf_list_scores,
-    )
-    from smqtk_indexing_tpu.ops.pallas_scan import topk_smallest
-
-    tn, d = mirror.shape
-    t_count = bases.shape[0]
-    cap = tn // t_count
-    b = q.shape[0]
-    q = q.astype(jnp.float32)
-    q_sq = jnp.sum(q * q, axis=-1)
-
-    proj = jnp.einsum("bd,tdl->btl", q, bases, precision=_HI)
-    leaves = descend_leaves(proj, splits, depth)             # (B, T)
-
-    starts = offsets[leaves]                                 # (B, T)
-    lengths = offsets[leaves + 1] - starts
-    # Split each leaf into fixed sub-windows of the kernel's DMA length
-    # (minus alignment slack).
-    sub_cap = L_MAX - 32
-    n_sub = -(-leaf_max // sub_cap)
-    jj = jax.lax.broadcasted_iota(jnp.int32, (b, t_count, n_sub), 2)
-    t_idx = jax.lax.broadcasted_iota(jnp.int32, (b, t_count, n_sub), 1)
-    g_start = (t_idx * cap + starts[..., None] + jj * sub_cap)
-    ln = jnp.clip(lengths[..., None] - jj * sub_cap, 0, sub_cap)
-    p_raw = t_count * n_sub
-    n_probe = -(-p_raw // PROBES_PER_STEP) * PROBES_PER_STEP
-    pad = n_probe - p_raw
-    g_start = g_start.reshape(b, p_raw)
-    ln = ln.reshape(b, p_raw)
-    if pad:
-        zeros = jnp.zeros((b, pad), jnp.int32)
-        g_start = jnp.concatenate([g_start, zeros], axis=1)
-        ln = jnp.concatenate([ln, zeros], axis=1)
-    c_start = jnp.minimum(g_start, tn - L_MAX)
-    c_start = (c_start // 32) * 32
-    lo = (g_start - c_start).astype(jnp.int32)
-    hi = (lo + ln).astype(jnp.int32)
-    c_start = c_start.astype(jnp.int32)
-
-    t_q = (q - mir_b[None, :]) * mir_a[None, :]
-    a_row = mir_a.reshape(1, 1, d).astype(jnp.float32)
-    b_chunk = b
-    while b_chunk * n_probe * 12 > (3 << 18):
-        b_chunk //= 2
-    b_chunk = max(b_chunk, 8)
-    parts = []
-    for qlo in range(0, b, b_chunk):       # static unroll
-        sl = slice(qlo, qlo + b_chunk)
-        parts.append(ivf_list_scores(
-            mirror, t_q[sl], a_row, c_start[sl].reshape(-1),
-            lo[sl].reshape(-1), hi[sl].reshape(-1), n_probe=n_probe,
-            interpret=interpret))
-    scores = parts[0] if len(parts) == 1 \
-        else jnp.concatenate(parts, axis=0)
-
-    # Kernel output layout: probe p -> lane p % PPS of step p // PPS.
-    steps = n_probe // PROBES_PER_STEP
-    c4 = c_start.reshape(b, steps, 1, PROBES_PER_STEP)
-    local = jax.lax.broadcasted_iota(
-        jnp.int32, (b, steps, L_MAX, PROBES_PER_STEP), 2)
-    mrows = (c4 + local).reshape(b, n_probe * L_MAX)
-
-    # One physical row appears in up to T trees with BITWISE-identical
-    # scores; k*T winners therefore always contain k distinct rows.
-    k_sel = min((k + 8) * t_count, n_probe * L_MAX)
-    sv, sel = topk_smallest(scores, k_sel)
-    sel_mrows = jnp.take_along_axis(mrows, sel, axis=1)
-    orig = jnp.take(leaf_flat, jnp.clip(sel_mrows, 0, tn - 1), axis=0)
-    orig = jnp.where(jnp.isinf(sv), -1, orig)
-
-    # Dedupe across trees among the winners (sort by id; duplicate
-    # scores are bitwise equal so masking any repeat is safe).
-    order = jnp.argsort(jnp.where(orig < 0, tn, orig), axis=1)
-    ids_s = jnp.take_along_axis(orig, order, axis=1)
-    sc_s = jnp.take_along_axis(sv, order, axis=1)
-    dup = jnp.concatenate(
-        [jnp.zeros((b, 1), bool), ids_s[:, 1:] == ids_s[:, :-1]], axis=1)
-    sc_s = jnp.where(dup | (ids_s < 0), jnp.inf, sc_s)
-
-    kk = min(k + 8, k_sel)
-    neg, sel2 = jax.lax.top_k(-sc_s, kk)
-    best_s = -neg
-    best_r = jnp.take_along_axis(ids_s, sel2, axis=1).astype(jnp.int32)
-    best_r = jnp.where(jnp.isinf(best_s), -1, best_r)
-    d_fin, r_fin = _exact_selected("euclidean", db, q, q_sq, best_s,
-                                   best_r)
     return d_fin[:, :k], r_fin[:, :k]

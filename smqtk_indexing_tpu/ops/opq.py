@@ -8,11 +8,11 @@ an orthogonal matrix R learned to minimize PQ reconstruction error
 ``||X R - dec(enc(X R))||_F`` before product quantization (Ge et al.,
 "Optimized Product Quantization", CVPR 2013). Because euclidean /
 inner-product / cosine are rotation invariant, the rotated codec plugs
-into every existing PQ path (XLA dequant scan, tiled ADC DMA kernel,
+into every existing PQ path (XLA dequant scan, tiled ADC scan,
 sharded scan) untouched — only the row-encode and query-prep transforms
 change, composing R after the deterministic dim-interleave permutation.
 
-TPU-first formulation: the alternation's heavy step is per-subspace
+Device-first formulation: the alternation's heavy step is per-subspace
 k-means, which already runs on device (ops/pq.pq_train -> ops/kmeans);
 the Procrustes rotation update is one (d, d) SVD on a d x d host matrix
 (d <= ~1024 — microseconds, not worth a device round-trip), fed by one

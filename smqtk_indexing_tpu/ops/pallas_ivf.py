@@ -1,1145 +1,92 @@
 """
-Pallas IVF list-scan kernel (TPU).
+SQ8 list-scan kernel of the IVF code tier (ops/ivf_tiled.py), Pallas
+through Triton.
 
-The XLA IVF query (ops/ivf.ivf_query) fetches probed-list rows with a
-row-id gather — TPU gathers run far below HBM bandwidth. But inverted
-lists are CONTIGUOUS row ranges in the CSR layout, so this kernel instead
-DMAs each probed list as one (L_MAX, d) block straight from HBM into VMEM
-(one ~256KB descriptor per probe — ideal DMA granularity), scores it on the
-VPU against the resident query, and emits the masked score column; the
-(tiny) host program does one top-k over (B, P*L_MAX) and an exact re-rank
-of the k winners.
-
-Scalar-prefetch carries per-(query, probe) clamped list starts and local
-[lo, hi) windows (clamping keeps the fixed-size DMA in bounds when a list
-sits near the end of the padded database; the window masks the shift and
-the list length).
+One program per (query, probe slot): it loads its own window indices
+(tile, start column, live [lo, hi) columns), loads only the live columns
+of its (d, W) window of the tiled-transposed int8 codes under a mask (dead
+slots load nothing), and scores them in f32 as ``s2 - 2 <t, u>`` with
+``t`` the query-side codec fold. The plain XLA form gathers every full
+window instead; this kernel measured faster end to end on the card
+(PERF.md). It compiles for the GPU and runs in the Pallas interpreter on
+the CPU (ops/device.kernel_interpret decides which).
 """
 from __future__ import annotations
 
 import math
 from functools import partial
-from typing import Tuple
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from smqtk_indexing_tpu.ops.device import pow2_at_least as _pow2_at_least_ivf
-from smqtk_indexing_tpu.ops.scan import _exact_selected, pad_to_k
+#: Width of one probe window (columns). Sublists are cut at W rows and at
+#: tile edges (ops/ivf_tiled.build_tiled_csr), so a window starting at
+#: ``min(col, TILE_ROWS - W)`` covers any sublist.
+W = 512
 
-#: Fixed per-probe DMA length (rows). Must be >= the layout's l_max; the
-#: IVF list balancer (models/nn_index/ivf.py) bounds list lengths near
-#: 2x the mean, so 512 covers balanced layouts; callers fall back to the
-#: XLA path when l_max exceeds this.
-L_MAX = 512
-
-#: MAX probes scored per grid step. Each step emits one (L_MAX, pps)
-#: score tile (probes on lanes) — a per-probe (L_MAX, 1) output column
-#: tile-pads its size-1 lane dim 128x (measured: 16GB HBM for a
-#: 512-probe batch, OOM), and the padding is written, so score traffic
-#: was 128x the useful bytes. Small probe budgets use a NARROWER step
-#: (pps = budget): padding the budget to 128 made the per-step scalar
-#: loop iterate mostly-dead slots — measured ~0.5 us per dead iteration,
-#: 65-100 ms/batch at B=1024 with a 32-slot budget, the Deep1M serving
-#: ceiling.
-PROBES_PER_STEP = 128
+#: Code rows (dims) loaded per step of the SQ8 window scan (the largest
+#: power of two dividing d, at most this): a (step, W) slice keeps one
+#: program's live values in registers.
+ROWS_STEP = 16
 
 
-def _ivf_kernel(start_ref, lo_ref, hi_ref, q_ref, a_ref, db_ref, out_ref,
-                cand, sems, acc, *, n_probe: int, pps: int):
-    qi = pl.program_id(0)
-    pj = pl.program_id(1)
-    steps = n_probe // pps
-    base = (qi * steps + pj) * pps
-    total = pl.num_programs(0) * steps * pps
-
-    def dma_for(i, s):
-        # Starts are 32-aligned by the caller (the int8 sublane tile is
-        # 32 rows; 32 also covers f32/bf16); the multiple_of hint lets
-        # Mosaic prove sublane-tile divisibility for the dynamic DMA.
-        start = pl.multiple_of(start_ref[i], 32)
-        return pltpu.make_async_copy(
-            db_ref.at[pl.ds(start, L_MAX), :], cand.at[s],
-            sems.at[s])
-
-    def live(i):
-        # Empty probe windows (ineligible budget slots under the faithful
-        # original-list nprobe translation) skip their DMA entirely, so
-        # HBM traffic scales with the lists actually probed.
-        return hi_ref[i] > lo_ref[i]
-
-    # Double buffering across the flattened (query, probe) sequence: each
-    # probe prefetches its successor's list while scoring its own.
-    @pl.when((base == 0) & live(0))
-    def _():
-        dma_for(0, 0).start()
-
-    acc[:] = jnp.full((L_MAX, pps), jnp.inf, jnp.float32)
-    lane = jax.lax.broadcasted_iota(jnp.int32, (L_MAX, pps), 1)
-
-    def body(j, _):
-        idx = base + j
-        slot = jax.lax.rem(idx, 2)
-        nxt = jax.lax.rem(idx + 1, 2)
-
-        @pl.when((idx + 1 < total) & live(idx + 1))
-        def _():
-            dma_for(idx + 1, nxt).start()
-
-        @pl.when(live(idx))
-        def _():
-            dma_for(idx, slot).wait()
-            # VPU scoring: broadcast-multiply-reduce along lanes -> one
-            # (L_MAX, 1) column (no transposes; per-probe GEMV gains
-            # nothing from the MXU). Squared norms are recomputed
-            # in-kernel — a (L_MAX, 1) norm slice cannot DMA (lane
-            # tiling requires 128-wide slices) and the extra VPU work is
-            # trivial. The column lands in lane j of the accumulator via
-            # a lane-select (single-lane stores and cross-lane
-            # transposes are both Mosaic hazards; one select per probe
-            # is pure VPU).
-            #
-            # One surrogate serves every storage codec: with row scale
-            # ``a`` (ones for float storage; the SQ8 per-dim codec scale
-            # for int8 codes) and query-side t = (q - b_codec) * a,
-            #   ||q - x_hat||^2 - ||q - b_codec||^2
-            #     = sum((a*u)^2) - 2<t, u>
-            # so int8 blocks DMA at 1 byte/dim and score EXACTLY (f32
-            # VPU math over exactly-represented code values).
-            block = cand[slot].astype(jnp.float32)  # cast in VMEM
-            au = block * a_ref[0]
-            ip = jnp.sum(block * q_ref[0].astype(jnp.float32), axis=1,
-                         keepdims=True)
-            sqv = jnp.sum(au * au, axis=1, keepdims=True)
-            scores = sqv - 2.0 * ip                      # (L_MAX, 1)
-            rowid = jax.lax.broadcasted_iota(jnp.int32, (L_MAX, 1), 0)
-            ok = (rowid >= lo_ref[idx]) & (rowid < hi_ref[idx])
-            col = jnp.where(ok, scores, jnp.inf)
-            acc[:] = jnp.where(lane == j, col, acc[:])
-        return 0
-
-    jax.lax.fori_loop(0, pps, body, 0)
-    out_ref[:] = acc[:].reshape(1, L_MAX, pps)
+def _window_mask(lo_ref, hi_ref):
+    lane = jax.lax.broadcasted_iota(jnp.int32, (W,), 0)
+    return (lane >= lo_ref[0]) & (lane < hi_ref[0])
 
 
-@partial(jax.jit, static_argnames=("n_probe", "interpret"))
-def ivf_list_scores(db: jnp.ndarray,
-                    q: jnp.ndarray, a_row: jnp.ndarray,
-                    starts: jnp.ndarray, lo: jnp.ndarray,
-                    hi: jnp.ndarray, *, n_probe: int,
-                    interpret: bool = False) -> jnp.ndarray:
+def _window_rows(db_ref, ti, c0, r0, rows, ok):
+    """(rows, W) slice of one window, live columns only (dead columns
+    and dead slots load nothing)."""
+    return plgpu.load(db_ref.at[ti, pl.ds(r0, rows), pl.ds(c0, W)],
+                      mask=jnp.broadcast_to(ok[None, :], (rows, W)),
+                      other=0)
+
+
+def _list_kernel(ti_ref, c0_ref, lo_ref, hi_ref, t_ref, db_ref, s2_ref,
+                 out_ref):
+    """SQ8 window score ``s2 - 2 <t, u>`` (f32 math over exactly
+    represented code values; +inf outside the live columns)."""
+    ok = _window_mask(lo_ref, hi_ref)
+    ti, c0 = ti_ref[0], c0_ref[0]
+    d = db_ref.shape[1]
+    step = math.gcd(ROWS_STEP, d)
+    ip = jnp.zeros((W,), jnp.float32)
+    for r0 in range(0, d, step):
+        codes = _window_rows(db_ref, ti, c0, r0, step, ok)
+        t = t_ref[0, r0:r0 + step]
+        ip += jnp.sum(codes.astype(jnp.float32) * t[:, None], axis=0)
+    s2 = plgpu.load(s2_ref.at[ti, 0, pl.ds(c0, W)], mask=ok, other=0.0)
+    out_ref[0, 0, :] = jnp.where(ok, s2 - 2.0 * ip, jnp.inf)
+
+
+@partial(jax.jit, static_argnames=("interpret",))
+def list_scores(db3, s2t, t, ti, c0, lo, hi, *, interpret: bool):
     """
-    :param db: (N, d) float32, bfloat16 or int8 database (list-sorted CSR
-        layout; bf16 halves, int8 SQ8 codes quarter, the per-probe DMA
-        traffic).
-    :param q: (B, d) float32 queries — for int8 codes the SQ8 query-side
-        ``t = (q - b_codec) * a`` (see ``_ivf_kernel``).
-    :param a_row: (1, 1, d) float32 per-dim row scale — ones for float
-        storage, the SQ8 codec scale for int8 codes.
-    :param starts: (B * n_probe,) int32 clamped list start rows
-        (32-aligned; start + L_MAX <= N guaranteed by the caller;
-        n_probe % PROBES_PER_STEP == 0 — callers pad with lo == hi
-        slots, which skip their DMA and score +inf).
-    :param lo/hi: (B * n_probe,) int32 local valid windows within each
-        DMA'd block ([lo, hi) relative to the clamped start).
-    :return: (B, n_probe * L_MAX) float32 masked L2 surrogate scores
-        (||q||^2 resp. ||q - b_codec||^2 omitted), +inf outside the
-        windows. LAYOUT: flattened from (steps, L_MAX, PROBES_PER_STEP) —
-        probe p's list occupies column p % PROBES_PER_STEP of step
-        p // PROBES_PER_STEP; callers must build row ids in the same
-        order.
-    """
-    n, d = db.shape
-    b = q.shape[0]
-    pps = min(PROBES_PER_STEP, n_probe)
-    assert n_probe % pps == 0
-    steps = n_probe // pps
-    q3 = q.reshape(b, 1, d)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=(b, steps),
-        in_specs=[
-            pl.BlockSpec((1, 1, d), lambda qi, pj, *_: (qi, 0, 0),
-                         memory_space=pltpu.VMEM),      # query
-            pl.BlockSpec((1, 1, d), lambda qi, pj, *_: (0, 0, 0),
-                         memory_space=pltpu.VMEM),      # row scale
-            pl.BlockSpec(memory_space=pl.ANY),          # db (manual DMA)
-        ],
-        out_specs=pl.BlockSpec(
-            (1, L_MAX, pps),
-            lambda qi, pj, *_: (qi * steps + pj, 0, 0),
-            memory_space=pltpu.VMEM),
-        scratch_shapes=[
-            pltpu.VMEM((2, L_MAX, d), db.dtype),
-            pltpu.SemaphoreType.DMA((2,)),
-            pltpu.VMEM((L_MAX, pps), jnp.float32),
-        ],
-    )
-    out = pl.pallas_call(
-        partial(_ivf_kernel, n_probe=n_probe, pps=pps),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct(
-            (b * steps, L_MAX, pps), jnp.float32),
-        interpret=interpret,
-    )(starts, lo, hi, q3, a_row, db)
-    return out.reshape(b, n_probe * L_MAX)
-
-
-@partial(jax.jit,
-         static_argnames=("k", "n_probe", "interpret", "nprobe_orig",
-                          "has_dead"))
-def ivf_query_dma(db: jnp.ndarray, valid: jnp.ndarray,
-                  centroids: jnp.ndarray, offsets: jnp.ndarray,
-                  lens: jnp.ndarray, q: jnp.ndarray, *, k: int,
-                  n_probe: int, interpret: bool = False, first_virt=None,
-                  nprobe_orig=None, has_dead: bool = True, dq=None
-                  ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """
-    Full IVF query with the DMA list-scan: same contract as
-    ops/ivf.ivf_query for metric='euclidean' (layouts must satisfy
-    max(lens) <= L_MAX - 32 — the slack absorbs sublane alignment of the
-    DMA start — and N >= L_MAX). first_virt/nprobe_orig enable the
-    FAISS-faithful original-list probe eligibility
-    (ops/ivf.probe_eligibility); ineligible budget slots skip their DMA.
-
-    :param dq: Optional (a, b) SQ8 codec arrays when ``db`` holds int8
-        codes — probed blocks DMA as raw codes (1 byte/dim, 4x less HBM
-        traffic than f32) and score via the codec-folded surrogate in
-        ``_ivf_kernel``; winners re-rank exactly from dequantized rows
-        (the reference's 'IVFn,SQ8' served at full kernel speed,
-        faiss.py:190,368-386).
-    """
-    from smqtk_indexing_tpu.ops.ivf import probe_eligibility
-
-    n, d = db.shape
-    b = q.shape[0]
-    q = q.astype(jnp.float32)
-    q_sq = jnp.sum(q * q, axis=-1)
-    if dq is not None:
-        t = (q - dq[1][None, :]) * dq[0][None, :]
-        a_row = dq[0].reshape(1, 1, d).astype(jnp.float32)
-    else:
-        t = q
-        a_row = jnp.ones((1, 1, d), jnp.float32)
-
-    # Probe selection (same surrogate as ops/ivf.ivf_query).
-    c = centroids.astype(jnp.float32)
-    c_sq = jnp.sum(c * c, axis=-1)
-    ip_c = jnp.dot(q, c.T, preferred_element_type=jnp.float32,
-                   precision=jax.lax.Precision.HIGHEST)
-    c_scores = probe_eligibility(c_sq[None, :] - 2.0 * ip_c, lens,
-                                 first_virt, nprobe_orig)
-    _, lists = jax.lax.top_k(-c_scores, n_probe)          # (B, P)
-
-    raw_start = offsets[lists]                            # (B, P)
-    probe_ok = jnp.take_along_axis(c_scores, lists, axis=1) < jnp.inf
-    ln = jnp.where(probe_ok, lens[lists], 0)
-    c_start = jnp.minimum(raw_start, n - L_MAX)
-    # Sublane-align the DMA start (int8 tiles are 32 rows, bf16 16;
-    # Mosaic rejects unaligned dynamic DMA starts) — the local window
-    # absorbs the shift.
-    c_start = (c_start // 32) * 32
-    ofs = raw_start - c_start
-    # Pad the probe axis to the kernel's per-step tile; pad slots carry
-    # lo == hi == 0 (dead: no DMA, +inf scores). Budgets under 128 use a
-    # narrower step so the per-step scalar loop never walks dead pad.
-    pps = min(PROBES_PER_STEP, _pow2_at_least_ivf(n_probe))
-    p8 = -(-n_probe // pps) * pps
-    pad = p8 - n_probe
-    if pad:
-        zeros = jnp.zeros((b, pad), jnp.int32)
-        c_start = jnp.concatenate([c_start, zeros], axis=1)
-        ofs = jnp.concatenate([ofs, zeros], axis=1)
-        ln = jnp.concatenate([ln, zeros], axis=1)
-    starts2 = c_start.astype(jnp.int32)
-    lo2 = ofs.astype(jnp.int32)
-    hi2 = (ofs + ln).astype(jnp.int32)
-
-    # Scalar-prefetch operands live in SMEM (1MB): three (B * P) int32
-    # arrays overflow it past B*P ~ 85K (measured OOM at B=1024, P=128),
-    # so large query batches stream through the kernel in row chunks.
-    b_chunk = b
-    while b_chunk * p8 * 12 > (3 << 18):   # 768KB budget
-        b_chunk //= 2
-    b_chunk = max(b_chunk, 8)
-    parts = []
-    for qlo in range(0, b, b_chunk):       # static unroll
-        parts.append(ivf_list_scores(
-            db, t[qlo:qlo + b_chunk], a_row,
-            starts2[qlo:qlo + b_chunk].reshape(-1),
-            lo2[qlo:qlo + b_chunk].reshape(-1),
-            hi2[qlo:qlo + b_chunk].reshape(-1),
-            n_probe=p8, interpret=interpret))
-    scores = parts[0] if len(parts) == 1 \
-        else jnp.concatenate(parts, axis=0)
-
-    # Row mapping matching the kernel's (steps, L_MAX, pps) output
-    # layout: probe p lives in lane p % pps of step p // pps.
-    steps = p8 // pps
-    c4 = c_start.reshape(b, steps, 1, pps)
-    local = jax.lax.broadcasted_iota(
-        jnp.int32, (b, steps, L_MAX, pps), 2)
-    rows = (c4 + local).reshape(b, p8 * L_MAX)
-    if has_dead:
-        # Dead rows (masked by the store) must not win. This is an
-        # 8M-element scattered gather at a 512-probe budget — callers
-        # whose stores have no removed rows pass has_dead=False to skip
-        # it (list windows never cover the padding tail, so only real
-        # removals need masking).
-        scores = jnp.where(
-            jnp.take(valid, jnp.clip(rows, 0, n - 1), axis=0),
-            scores, jnp.inf)
-
-    from smqtk_indexing_tpu.ops.pallas_scan import topk_smallest
-    k_inner = min(k, n_probe * L_MAX)
-    top_scores, sel = topk_smallest(scores, k_inner)
-    top_rows = jnp.take_along_axis(rows, sel, axis=1).astype(jnp.int32)
-    top_rows = jnp.where(jnp.isinf(top_scores), -1, top_rows)
-    if k_inner < k:
-        pad = k - k_inner
-        top_scores = jnp.concatenate(
-            [top_scores, jnp.full((b, pad), jnp.inf, jnp.float32)], axis=1)
-        top_rows = jnp.concatenate(
-            [top_rows, jnp.full((b, pad), -1, jnp.int32)], axis=1)
-    return _exact_selected("euclidean", db, q, q_sq, top_scores, top_rows,
-                           dq=dq)
-
-
-# ---------------------------------------------------------------------------
-# Tiled-transposed layout (capacity tier): IVF over the SAME single-copy
-# (n_tiles, d, TILE_N) array the exhaustive scan uses (ops/pallas_scan
-# .segment_minima_tiled) — one 12.9GB int8 buffer at 100M rows serves both
-# the exhaustive oracle and the IVF fast path.
-# ---------------------------------------------------------------------------
-
-#: Lane width of one tiled-layout DMA window. Sublists are cut at
-#: W_TILED - 128 rows and at tile boundaries by build_tiled_csr, so any
-#: (clamped-to-128-aligned) window start keeps [lo, hi) inside W_TILED.
-W_TILED = 640
-
-#: Probes per grid step of the tiled kernel (sublane dim of the score
-#: accumulator).
-P_STEP_TILED = 64
-
-#: Row capacity of one tile of the tiled-transposed layout (matches
-#: ops/pallas_scan.TILE_N).
-TILE_ROWS = 4096
-
-
-def build_tiled_csr(chunk_lens, chunk_bases, cap: int = W_TILED - 128,
-                    tile: int = TILE_ROWS):
-    """
-    Virtual-sublist CSR over a tiled-transposed layout built in CHUNKS:
-    chunk c's rows occupy global rows [chunk_bases[c], ...) sorted by
-    list id, so original list ``li`` is a union of per-chunk contiguous
-    runs. Each run splits at ``cap`` (so a window of W_TILED covers any
-    sublist after 128-alignment clamping) and at ``tile`` boundaries (a
-    lane-dim DMA cannot cross tiles).
-
-    :param chunk_lens: (n_chunks, C) int — per-chunk per-list row counts.
-    :param chunk_bases: (n_chunks,) int — global first row of each chunk.
-    :return: (v_tile, v_col, v_len, v_orig, first_virt) int32 arrays —
-        sublist tile index / in-tile start column / length / original
-        list id, plus one representative slot per original (empty
-        originals get a dead len-0 slot so FAISS-faithful nprobe ranks
-        them like FAISS does).
-    """
-    import numpy as np
-    chunk_lens = np.asarray(chunk_lens)
-    n_chunks, c_lists = chunk_lens.shape
-    v_off, v_len, v_orig = [], [], []
-    for c in range(n_chunks):
-        lens_c = chunk_lens[c]
-        offs = chunk_bases[c] + np.concatenate(
-            [[0], np.cumsum(lens_c)[:-1]])
-        for li in np.nonzero(lens_c)[0]:
-            start, end = int(offs[li]), int(offs[li] + lens_c[li])
-            while start < end:
-                stop = min(end, start + cap,
-                           (start // tile + 1) * tile)
-                v_off.append(start)
-                v_len.append(stop - start)
-                v_orig.append(li)
-                start = stop
-    v_off = np.asarray(v_off, dtype=np.int64)
-    v_len = np.asarray(v_len, dtype=np.int32)
-    v_orig = np.asarray(v_orig, dtype=np.int32)
-    # Dead slots for all-empty originals (rank, never scan).
-    missing = np.setdiff1d(np.arange(c_lists), v_orig)
-    if missing.size:
-        v_off = np.concatenate([v_off, np.zeros(missing.size, np.int64)])
-        v_len = np.concatenate([v_len, np.zeros(missing.size, np.int32)])
-        v_orig = np.concatenate([v_orig, missing.astype(np.int32)])
-    first_virt = np.full(c_lists, -1, dtype=np.int32)
-    for i, li in enumerate(v_orig):
-        if first_virt[li] < 0:
-            first_virt[li] = i
-    assert (first_virt >= 0).all()
-    return ((v_off // tile).astype(np.int32),
-            (v_off % tile).astype(np.int32), v_len, v_orig, first_virt)
-
-
-def probe_budget(v_orig, nprobe_orig: int, step: int = P_STEP_TILED
-                 ) -> int:
-    """Static probe-slot budget that always covers the ``nprobe_orig``
-    nearest originals' sublists (+1 tied list of slack +8), padded to the
-    kernel's per-step tile."""
-    import numpy as np
-    counts = np.bincount(np.asarray(v_orig))
-    top = np.sort(counts)[::-1][:nprobe_orig + 1]
-    budget = int(top.sum()) + 8
-    return -(-budget // step) * step
-
-
-def _ivf_tiled_kernel(ti_ref, c0_ref, lo_ref, hi_ref, t_ref, db_ref,
-                      s2_ref, out_ref, cand, s2buf, sems, acc, *,
-                      n_probe: int):
-    """Tiled-layout list scan: per probe, DMA one (d, W_TILED) code
-    window + its (1, W_TILED) precomputed row-stat slice, score on the
-    MXU with a 2-pass split-bf16 dot (int8 codes are exact in bf16; the
-    split covers the f32 query side to ~2^-16 — selection noise absorbed
-    by the caller's k+8 margin and exact re-rank), and sublane-select the
-    (1, W) score row into the (P_STEP, W) accumulator."""
-    qi = pl.program_id(0)
-    pj = pl.program_id(1)
-    steps = n_probe // P_STEP_TILED
-    base = (qi * steps + pj) * P_STEP_TILED
-    total = pl.num_programs(0) * steps * P_STEP_TILED
-
-    def dmas_for(i, s):
-        c0 = pl.multiple_of(c0_ref[i], 128)
-        return (pltpu.make_async_copy(
-                    db_ref.at[ti_ref[i], :, pl.ds(c0, W_TILED)],
-                    cand.at[s], sems.at[s, 0]),
-                pltpu.make_async_copy(
-                    s2_ref.at[ti_ref[i], :, pl.ds(c0, W_TILED)],
-                    s2buf.at[s], sems.at[s, 1]))
-
-    def live(i):
-        return hi_ref[i] > lo_ref[i]
-
-    @pl.when((base == 0) & live(0))
-    def _():
-        for cp in dmas_for(0, 0):
-            cp.start()
-
-    acc[:] = jnp.full((P_STEP_TILED, W_TILED), jnp.inf, jnp.float32)
-    row_sel = jax.lax.broadcasted_iota(
-        jnp.int32, (P_STEP_TILED, W_TILED), 0)
-    lane = jax.lax.broadcasted_iota(jnp.int32, (1, W_TILED), 1)
-    t = t_ref[0]                                   # (1, d) float32
-    t_hi = t.astype(jnp.bfloat16)
-    t_lo = (t - t_hi.astype(jnp.float32)).astype(jnp.bfloat16)
-
-    def body(j, _):
-        idx = base + j
-        slot = jax.lax.rem(idx, 2)
-        nxt = jax.lax.rem(idx + 1, 2)
-
-        @pl.when((idx + 1 < total) & live(idx + 1))
-        def _():
-            for cp in dmas_for(idx + 1, nxt):
-                cp.start()
-
-        @pl.when(live(idx))
-        def _():
-            for cp in dmas_for(idx, slot):
-                cp.wait()
-            block = cand[slot].astype(jnp.bfloat16)     # (d, W) exact
-            ip = jax.lax.dot_general(
-                t_hi, block, dimension_numbers=(((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32)
-            ip += jax.lax.dot_general(
-                t_lo, block, dimension_numbers=(((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32)     # (1, W)
-            scores = s2buf[slot] - 2.0 * ip
-            ok = (lane >= lo_ref[idx]) & (lane < hi_ref[idx])
-            row = jnp.where(ok, scores, jnp.inf)
-            acc[:] = jnp.where(row_sel == j, row, acc[:])
-        return 0
-
-    jax.lax.fori_loop(0, P_STEP_TILED, body, 0)
-    out_ref[:] = acc[:].reshape(1, P_STEP_TILED, W_TILED)
-
-
-@partial(jax.jit, static_argnames=("n_probe", "interpret"))
-def ivf_list_scores_tiled(db3: jnp.ndarray, s2t: jnp.ndarray,
-                          t: jnp.ndarray, ti: jnp.ndarray,
-                          c0: jnp.ndarray, lo: jnp.ndarray,
-                          hi: jnp.ndarray, *, n_probe: int,
-                          interpret: bool = False) -> jnp.ndarray:
-    """
-    :param db3: (n_tiles, d, TILE_ROWS) int8/bf16/f32 tiled-transposed
-        codes (row r at [r // TILE_ROWS, :, r % TILE_ROWS]).
-    :param s2t: (n_tiles, 1, TILE_ROWS) float32 per-row sum((a*u)^2) in
-        the same layout (precomputed; DMA'd per window beside the codes).
+    :param db3: (n_tiles, d, TILE_ROWS) int8 SQ8 codes.
+    :param s2t: (n_tiles, 1, TILE_ROWS) float32 per-row sum((a*u)^2)
+        (+inf on dead rows).
     :param t: (B, d) float32 query-side codec fold (q - b_codec) * a.
-    :param ti/c0/lo/hi: (B * n_probe,) int32 — tile index, 128-aligned
-        window start column, and local [lo, hi) valid window per probe
-        slot (lo == hi slots skip their DMAs).
-    :return: (B, n_probe * W_TILED) float32 masked surrogate scores
-        (||q - b_codec||^2 omitted); +inf outside windows.
+    :param ti/c0/lo/hi: (B, P) int32 windows (ops/ivf_tiled._windows).
+    :param interpret: ops/device.kernel_interpret of the operands.
+    :return: (B, P, W) float32 surrogate scores, +inf outside windows.
     """
-    n_tiles, d, tile_n = db3.shape
-    b = t.shape[0]
-    assert n_probe % P_STEP_TILED == 0
-    steps = n_probe // P_STEP_TILED
-    t3 = t.reshape(b, 1, d)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=4,
-        grid=(b, steps),
-        in_specs=[
-            pl.BlockSpec((1, 1, d), lambda qi, pj, *_: (qi, 0, 0),
-                         memory_space=pltpu.VMEM),      # t
-            pl.BlockSpec(memory_space=pl.ANY),          # db3 (manual DMA)
-            pl.BlockSpec(memory_space=pl.ANY),          # s2t (manual DMA)
-        ],
-        out_specs=pl.BlockSpec(
-            (1, P_STEP_TILED, W_TILED),
-            lambda qi, pj, *_: (qi * steps + pj, 0, 0),
-            memory_space=pltpu.VMEM),
-        scratch_shapes=[
-            pltpu.VMEM((2, d, W_TILED), db3.dtype),
-            pltpu.VMEM((2, 1, W_TILED), jnp.float32),
-            pltpu.SemaphoreType.DMA((2, 2)),
-            pltpu.VMEM((P_STEP_TILED, W_TILED), jnp.float32),
-        ],
-    )
-    out = pl.pallas_call(
-        partial(_ivf_tiled_kernel, n_probe=n_probe),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct(
-            (b * steps, P_STEP_TILED, W_TILED), jnp.float32),
+    b, p = ti.shape
+    scalar = pl.BlockSpec((1,), lambda i, j: (i * p + j,))
+    return pl.pallas_call(
+        _list_kernel,
+        grid=(b, p),
+        in_specs=[scalar, scalar, scalar, scalar,
+                  pl.BlockSpec((1, t.shape[1]), lambda i, j: (i, 0)),
+                  pl.BlockSpec(db3.shape, lambda i, j: (0, 0, 0)),
+                  pl.BlockSpec(s2t.shape, lambda i, j: (0, 0, 0))],
+        out_specs=pl.BlockSpec((1, 1, W), lambda i, j: (i, j, 0)),
+        out_shape=jax.ShapeDtypeStruct((b, p, W), jnp.float32),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=1),
         interpret=interpret,
-    )(ti, c0, lo, hi, t3, db3, s2t)
-    return out.reshape(b, n_probe * W_TILED)
-
-
-@partial(jax.jit,
-         static_argnames=("k", "n_probe", "interpret", "nprobe_orig",
-                          "rerank"))
-def ivf_query_dma_tiled(db3: jnp.ndarray, s2t: jnp.ndarray, a: jnp.ndarray,
-                        b_codec: jnp.ndarray, centroids: jnp.ndarray,
-                        v_tile: jnp.ndarray, v_col: jnp.ndarray,
-                        v_len: jnp.ndarray, q: jnp.ndarray, *, k: int,
-                        n_probe: int, first_virt=None, nprobe_orig=None,
-                        interpret: bool = False, rerank: str = "gather"
-                        ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """
-    Full IVF query over the tiled-transposed SQ8 layout — the capacity
-    configuration (IVF-SQ8 at 100M rows/chip; the reference's
-    'IVF<n>,SQ8' factory config served by FAISS's native list scans,
-    faiss.py:190,368-386). Probe selection ranks the (duplicated)
-    virtual-sublist centroids with FAISS-faithful original-list
-    eligibility; winners re-rank EXACTLY from dequantized f32 rows
-    fetched via the segment DMA gather (no XLA gather ever touches the
-    multi-GB parameter — see ops/pallas_scan.seg_gather_tiled).
-
-    :param centroids: (V, d) float32 virtual centroids (duplicated per
-        sublist of build_tiled_csr's layout).
-    :param v_tile/v_col/v_len: build_tiled_csr's sublist arrays.
-    :return: (dists (B, k) float32 ascending — exact w.r.t. the
-        quantized vectors, rows (B, k) int32; +inf / -1 padding).
-    """
-    from smqtk_indexing_tpu.ops.ivf import probe_eligibility
-
-    n_tiles, d, tile_n = db3.shape
-    b = q.shape[0]
-    q = q.astype(jnp.float32)
-    q_norm = jnp.sqrt(jnp.sum(q * q, axis=-1))
-    t = (q - b_codec[None, :]) * a[None, :]
-
-    c = centroids.astype(jnp.float32)
-    c_sq = jnp.sum(c * c, axis=-1)
-    ip_c = jnp.dot(q, c.T, preferred_element_type=jnp.float32,
-                   precision=jax.lax.Precision.HIGHEST)
-    c_scores = probe_eligibility(c_sq[None, :] - 2.0 * ip_c, v_len,
-                                 first_virt, nprobe_orig)
-    # The (step-padded) budget can exceed the virtual-slot count at small
-    # scale; surplus slots are dead (lo == hi -> no DMA, +inf scores).
-    n_sel = min(n_probe, c_scores.shape[1])
-    _, lists = jax.lax.top_k(-c_scores, n_sel)            # (B, P_sel)
-
-    probe_ok = jnp.take_along_axis(c_scores, lists, axis=1) < jnp.inf
-    ln = jnp.where(probe_ok, v_len[lists], 0)
-    ti = v_tile[lists]
-    col = v_col[lists]
-    c0 = jnp.minimum((col // 128) * 128, tile_n - W_TILED)
-    lo = col - c0
-    hi = lo + ln
-    if n_sel < n_probe:
-        pad = n_probe - n_sel
-        zeros = jnp.zeros((b, pad), jnp.int32)
-        ti = jnp.concatenate([ti, zeros], axis=1)
-        c0 = jnp.concatenate([c0, zeros], axis=1)
-        lo = jnp.concatenate([lo, zeros], axis=1)
-        hi = jnp.concatenate([hi, zeros], axis=1)
-
-    return _tiled_scan_finish(db3, s2t, a, b_codec, q, q_norm, t, ti, c0,
-                              lo, hi, k=k, n_probe=n_probe,
-                              interpret=interpret, rerank=rerank)
-
-
-# Score-mode finalization = the shared (B, k) +inf/-1 padding contract
-# (gather mode pads through ops/scan.exact_rerank_decoded, which uses
-# the same helper).
-_score_out = pad_to_k
-
-
-def _tiled_scan_finish(db3, s2t, a, b_codec, q, q_norm, t, ti, c0, lo, hi,
-                       *, k: int, n_probe: int, interpret: bool,
-                       rerank: str = "gather", metric: str = "euclidean"):
-    """Shared tail of the tiled IVF query: kernel scan over the selected
-    probe windows, top-k, then finalization per ``rerank``:
-
-    - "gather": fetch each winner's 128-row segment through the DMA
-      gather, dequantize, exact f32 distance (bit-faithful to the
-      quantized vectors) under ``metric`` (ops/scan.exact_rerank_decoded).
-    - "score": distances come straight from the kernel surrogate —
-      euclidean: sqrt(score + ||q - b_codec||^2); the additive
-      cancellation bound is ~2^-16 * (||q - b||^2 + s2) on the SQUARED
-      distance (measured on-chip: the two-level bf16 split leaves ~16
-      mantissa bits of the query side), well below the SQ8 quantization
-      step; rankings use the same surrogate either way.
-      inner_product: the kernel score IS -<q, x_hat - b_codec> (the
-      caller passed t = q * a / 2 with zeroed s2t), so the reported
-      negated IP is score - <q, b_codec> — exact up to the same bf16
-      split bound, no surrogate gap at all.
-      cosine: rows were L2-normalized BEFORE encoding and q arrives
-      normalized, so score + ||q - b||^2 = ||q - x_hat||^2 and the
-      angular distance is 2*arccos(1 - d^2/2)/pi up to the codec's
-      ~1e-2 deviation of ||x_hat|| from 1.
-      At 100M/B=1024 the winner-segment gather measured ~100 ms/batch
-      (24K scattered 16KB blocks), the dominant serving cost; "score"
-      removes it entirely.
-    """
-    from smqtk_indexing_tpu.ops.pallas_scan import (
-        SEG, seg_gather_tiled, topk_smallest,
-    )
-    from smqtk_indexing_tpu.ops.scan import exact_rerank_decoded
-
-    n_tiles, d, tile_n = db3.shape
-    b = q.shape[0]
-    # Chunk the batch BOTH for the kernel's SMEM scalar-prefetch budget
-    # (4 int32 arrays of B * P) and for HBM: the (b_chunk, P * W) score
-    # and row-id blocks live only per chunk — at a 100M-scale probe
-    # budget the full-batch blocks measured 2.4GB each (OOM).
-    kk = min(k + 8, n_probe * W_TILED)
-    b_chunk = b
-    while b_chunk * n_probe * 16 > (3 << 18) \
-            or b_chunk * n_probe * W_TILED * 8 > (1 << 30):
-        b_chunk //= 2
-    b_chunk = max(b_chunk, 8)
-    ts_parts, tr_parts = [], []
-    for qlo in range(0, b, b_chunk):       # static unroll
-        sl = slice(qlo, qlo + b_chunk)
-        bc = min(b_chunk, b - qlo)
-        scores = ivf_list_scores_tiled(
-            db3, s2t, t[sl], ti[sl].reshape(-1).astype(jnp.int32),
-            c0[sl].reshape(-1).astype(jnp.int32),
-            lo[sl].reshape(-1).astype(jnp.int32),
-            hi[sl].reshape(-1).astype(jnp.int32),
-            n_probe=n_probe, interpret=interpret)
-        # Global row of window lane w of probe slot p.
-        base_row = (ti[sl] * tile_n + c0[sl]).astype(jnp.int32)
-        rows = (base_row[..., None]
-                + jax.lax.broadcasted_iota(
-                    jnp.int32, (bc, n_probe, W_TILED), 2)
-                ).reshape(bc, n_probe * W_TILED)
-        tsc, sel = topk_smallest(scores, kk)
-        ts_parts.append(tsc)
-        tr_parts.append(
-            jnp.take_along_axis(rows, sel, axis=1).astype(jnp.int32))
-    top_scores = ts_parts[0] if len(ts_parts) == 1 \
-        else jnp.concatenate(ts_parts, axis=0)
-    top_rows = tr_parts[0] if len(tr_parts) == 1 \
-        else jnp.concatenate(tr_parts, axis=0)
-    top_rows = jnp.where(jnp.isinf(top_scores), -1, top_rows)
-
-    if rerank == "score":
-        if metric == "inner_product":
-            qb = jnp.sum(q * b_codec[None, :], axis=-1)
-            dists = top_scores - qb[:, None]
-        else:
-            rq = q - b_codec[None, :]
-            r_sq = jnp.sum(rq * rq, axis=-1)
-            d2 = jnp.maximum(top_scores + r_sq[:, None], 0.0)
-            if metric == "cosine":
-                sim = jnp.clip(1.0 - d2 / 2.0, -1.0, 1.0)
-                dists = 2.0 * jnp.arccos(sim) / math.pi
-            else:
-                dists = jnp.sqrt(d2)
-        dists = jnp.where(top_rows < 0, jnp.inf, dists)
-        return _score_out(dists, top_rows, k)
-
-    # Exact re-rank: fetch each winner's 128-row segment through the DMA
-    # gather, slice its column, dequantize, exact f32 distance.
-    rows_c = jnp.maximum(top_rows, 0)
-    seg_ids = rows_c // SEG
-    blocks = seg_gather_tiled(db3, seg_ids, interpret=interpret)
-    col_sel = (rows_c % SEG).reshape(b, kk, 1, 1)
-    codes_sel = jnp.take_along_axis(
-        blocks, jnp.broadcast_to(col_sel, (b, kk, d, 1)), axis=3
-    ).reshape(b, kk, d)
-    x = codes_sel.astype(jnp.float32) * a + b_codec
-    dists, out_rows = exact_rerank_decoded(
-        x, q, q_norm, top_scores, top_rows, metric, k)
-    return dists, out_rows
-
-
-# ---------------------------------------------------------------------------
-# PQ over the tiled-transposed layout: (n_tiles, M, TILE_ROWS) int8 code
-# tiles (uint8 PQ codes bit-reinterpreted — Mosaic's proven int8 path),
-# scored in-kernel by ADC-as-one-hot on the MXU. FAISS serves 'IVF<n>,PQ<M>'
-# through native ADC list scans (faiss.py:190,368-386); the TPU has no
-# hardware table-gather, so the per-row LUT sum
-#   ip(w) = sum_m T[m, code(m, w)]
-# becomes one (1, M*256) x (M*256, W) MXU dot against the one-hot code
-# expansion built on the VPU (one compare per (m, v, w) — amortized over
-# nothing, but ~2.6M bools/probe is ~3-5 us of VPU, on par with the DMA).
-# ---------------------------------------------------------------------------
-
-
-def _ivf_tiled_pq_kernel(ti_ref, c0_ref, lo_ref, hi_ref, lut_ref, db_ref,
-                         s2_ref, out_ref, cand, s2buf, sems, acc, *,
-                         n_probe: int):
-    """PQ tiled list scan: per probe, DMA one (M, W_TILED) code window +
-    its (1, W_TILED) reconstruction-norm slice, expand codes to a one-hot
-    (M*256, W) bf16 block (exact in bf16), and take the per-query ADC LUT
-    sum as a split-bf16 MXU dot (LUT f32 covered to ~2^-16 — selection
-    noise absorbed by the caller's k+8 margin and the exact re-rank)."""
-    qi = pl.program_id(0)
-    pj = pl.program_id(1)
-    steps = n_probe // P_STEP_TILED
-    base = (qi * steps + pj) * P_STEP_TILED
-    total = pl.num_programs(0) * steps * P_STEP_TILED
-    m_sub = cand.shape[1]
-
-    def dmas_for(i, s):
-        c0 = pl.multiple_of(c0_ref[i], 128)
-        return (pltpu.make_async_copy(
-                    db_ref.at[ti_ref[i], :, pl.ds(c0, W_TILED)],
-                    cand.at[s], sems.at[s, 0]),
-                pltpu.make_async_copy(
-                    s2_ref.at[ti_ref[i], :, pl.ds(c0, W_TILED)],
-                    s2buf.at[s], sems.at[s, 1]))
-
-    def live(i):
-        return hi_ref[i] > lo_ref[i]
-
-    @pl.when((base == 0) & live(0))
-    def _():
-        for cp in dmas_for(0, 0):
-            cp.start()
-
-    acc[:] = jnp.full((P_STEP_TILED, W_TILED), jnp.inf, jnp.float32)
-    row_sel = jax.lax.broadcasted_iota(
-        jnp.int32, (P_STEP_TILED, W_TILED), 0)
-    lane = jax.lax.broadcasted_iota(jnp.int32, (1, W_TILED), 1)
-    lut = lut_ref[0]                               # (1, M*256) float32
-    lut_hi = lut.astype(jnp.bfloat16)
-    lut_lo = (lut - lut_hi.astype(jnp.float32)).astype(jnp.bfloat16)
-    iota_v = jax.lax.broadcasted_iota(
-        jnp.int32, (m_sub, 256, W_TILED), 1)
-
-    def body(j, _):
-        idx = base + j
-        slot = jax.lax.rem(idx, 2)
-        nxt = jax.lax.rem(idx + 1, 2)
-
-        @pl.when((idx + 1 < total) & live(idx + 1))
-        def _():
-            for cp in dmas_for(idx + 1, nxt):
-                cp.start()
-
-        @pl.when(live(idx))
-        def _():
-            for cp in dmas_for(idx, slot):
-                cp.wait()
-            # int8 bit pattern -> original uint8 code value 0..255.
-            codes = cand[slot].astype(jnp.int32) & 0xFF       # (M, W)
-            oh = (codes.reshape(m_sub, 1, W_TILED) == iota_v) \
-                .astype(jnp.bfloat16)                 # (M, 256, W) exact
-            oh2 = oh.reshape(m_sub * 256, W_TILED)
-            ip = jax.lax.dot_general(
-                lut_hi, oh2, dimension_numbers=(((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32)
-            ip += jax.lax.dot_general(
-                lut_lo, oh2, dimension_numbers=(((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32)           # (1, W)
-            scores = s2buf[slot] - 2.0 * ip
-            ok = (lane >= lo_ref[idx]) & (lane < hi_ref[idx])
-            row = jnp.where(ok, scores, jnp.inf)
-            acc[:] = jnp.where(row_sel == j, row, acc[:])
-        return 0
-
-    jax.lax.fori_loop(0, P_STEP_TILED, body, 0)
-    out_ref[:] = acc[:].reshape(1, P_STEP_TILED, W_TILED)
-
-
-@partial(jax.jit, static_argnames=("n_probe", "interpret"))
-def ivf_list_scores_tiled_pq(db3c: jnp.ndarray, s2t: jnp.ndarray,
-                             lut: jnp.ndarray, ti: jnp.ndarray,
-                             c0: jnp.ndarray, lo: jnp.ndarray,
-                             hi: jnp.ndarray, *, n_probe: int,
-                             interpret: bool = False) -> jnp.ndarray:
-    """
-    :param db3c: (n_tiles, M, TILE_ROWS) int8 PQ code tiles (uint8 codes
-        bit-reinterpreted to int8; row r at [r // TILE_ROWS, :,
-        r % TILE_ROWS]).
-    :param s2t: (n_tiles, 1, TILE_ROWS) float32 squared reconstruction
-        norms (+inf poisons dead rows).
-    :param lut: (B, M*256) float32 per-query ADC table
-        lut[b, m*256 + v] = <q_m, codebook[m, v]> on the codec dim grid.
-    :param ti/c0/lo/hi: As :func:`ivf_list_scores_tiled`.
-    :return: (B, n_probe * W_TILED) float32 masked surrogate scores
-        (||q||^2 omitted); +inf outside windows.
-    """
-    n_tiles, m_sub, tile_n = db3c.shape
-    b = lut.shape[0]
-    assert n_probe % P_STEP_TILED == 0
-    steps = n_probe // P_STEP_TILED
-    lut3 = lut.reshape(b, 1, m_sub * 256)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=4,
-        grid=(b, steps),
-        in_specs=[
-            pl.BlockSpec((1, 1, m_sub * 256),
-                         lambda qi, pj, *_: (qi, 0, 0),
-                         memory_space=pltpu.VMEM),      # lut
-            pl.BlockSpec(memory_space=pl.ANY),          # db3c (manual DMA)
-            pl.BlockSpec(memory_space=pl.ANY),          # s2t (manual DMA)
-        ],
-        out_specs=pl.BlockSpec(
-            (1, P_STEP_TILED, W_TILED),
-            lambda qi, pj, *_: (qi * steps + pj, 0, 0),
-            memory_space=pltpu.VMEM),
-        scratch_shapes=[
-            pltpu.VMEM((2, m_sub, W_TILED), db3c.dtype),
-            pltpu.VMEM((2, 1, W_TILED), jnp.float32),
-            pltpu.SemaphoreType.DMA((2, 2)),
-            pltpu.VMEM((P_STEP_TILED, W_TILED), jnp.float32),
-        ],
-    )
-    out = pl.pallas_call(
-        partial(_ivf_tiled_pq_kernel, n_probe=n_probe),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct(
-            (b * steps, P_STEP_TILED, W_TILED), jnp.float32),
-        interpret=interpret,
-    )(ti, c0, lo, hi, lut3, db3c, s2t)
-    return out.reshape(b, n_probe * W_TILED)
-
-
-def _tiled_scan_finish_pq(db3c, s2t, codebooks, q_c, lut, ti, c0, lo, hi,
-                          *, k: int, n_probe: int, interpret: bool,
-                          rerank: str = "gather", probe_off=None,
-                          res_cents=None, row2list=None,
-                          metric: str = "euclidean"):
-    """PQ counterpart of :func:`_tiled_scan_finish`: chunked kernel scan
-    + top-k over the probe windows, then finalization per ``rerank`` —
-    "gather" fetches winner code segments through the DMA gather, decodes
-    exactly (f32 one-hot dequant), and reports distances exact w.r.t. the
-    reconstruction; "score" reconstructs sqrt(score + ||q||^2) from the
-    kernel surrogate.
-
-    Residual mode (``probe_off``/``res_cents``/``row2list`` given): the
-    kernel output gains a per-probe ``-2<q, c>`` broadcast before
-    selection (codes carry residuals; s2t holds ``||c_T + r_hat||^2``),
-    and the exact decode adds the winner's codec-space centroid back —
-    the kernel itself is untouched."""
-    from smqtk_indexing_tpu.ops.pallas_scan import (
-        SEG, seg_gather_tiled, topk_smallest,
-    )
-    from smqtk_indexing_tpu.ops.pq import _dequant
-    from smqtk_indexing_tpu.ops.scan import exact_rerank_decoded
-
-    n_tiles, m_sub, tile_n = db3c.shape
-    b = q_c.shape[0]
-    q_sq = jnp.sum(q_c * q_c, axis=-1)
-    q_norm = jnp.sqrt(q_sq)
-    kk = min(k + 8, n_probe * W_TILED)
-    b_chunk = b
-    while b_chunk * n_probe * 16 > (3 << 18) \
-            or b_chunk * n_probe * W_TILED * 8 > (1 << 30):
-        b_chunk //= 2
-    b_chunk = max(b_chunk, 8)
-    ts_parts, tr_parts = [], []
-    for qlo in range(0, b, b_chunk):       # static unroll
-        sl = slice(qlo, qlo + b_chunk)
-        bc = min(b_chunk, b - qlo)
-        scores = ivf_list_scores_tiled_pq(
-            db3c, s2t, lut[sl], ti[sl].reshape(-1).astype(jnp.int32),
-            c0[sl].reshape(-1).astype(jnp.int32),
-            lo[sl].reshape(-1).astype(jnp.int32),
-            hi[sl].reshape(-1).astype(jnp.int32),
-            n_probe=n_probe, interpret=interpret)
-        if probe_off is not None:
-            # Residual offset: +inf-masked windows stay +inf.
-            scores = (scores.reshape(bc, n_probe, W_TILED)
-                      + probe_off[sl][:, :, None]
-                      ).reshape(bc, n_probe * W_TILED)
-        base_row = (ti[sl] * tile_n + c0[sl]).astype(jnp.int32)
-        rows = (base_row[..., None]
-                + jax.lax.broadcasted_iota(
-                    jnp.int32, (bc, n_probe, W_TILED), 2)
-                ).reshape(bc, n_probe * W_TILED)
-        tsc, sel = topk_smallest(scores, kk)
-        ts_parts.append(tsc)
-        tr_parts.append(
-            jnp.take_along_axis(rows, sel, axis=1).astype(jnp.int32))
-    top_scores = ts_parts[0] if len(ts_parts) == 1 \
-        else jnp.concatenate(ts_parts, axis=0)
-    top_rows = tr_parts[0] if len(tr_parts) == 1 \
-        else jnp.concatenate(tr_parts, axis=0)
-    top_rows = jnp.where(jnp.isinf(top_scores), -1, top_rows)
-
-    if rerank == "score":
-        if metric == "inner_product":
-            # Kernel score with zeroed s2t is exactly -2<q, x_hat>.
-            dists = top_scores / 2.0
-        else:
-            d2 = jnp.maximum(top_scores + q_sq[:, None], 0.0)
-            if metric == "cosine":
-                sim = jnp.clip(1.0 - d2 / 2.0, -1.0, 1.0)
-                dists = 2.0 * jnp.arccos(sim) / math.pi
-            else:
-                dists = jnp.sqrt(d2)
-        dists = jnp.where(top_rows < 0, jnp.inf, dists)
-        return _score_out(dists, top_rows, k)
-
-    rows_c = jnp.maximum(top_rows, 0)
-    seg_ids = rows_c // SEG
-    blocks = seg_gather_tiled(db3c, seg_ids, interpret=interpret)
-    col_sel = (rows_c % SEG).reshape(b, kk, 1, 1)
-    codes_sel = jnp.take_along_axis(
-        blocks, jnp.broadcast_to(col_sel, (b, kk, m_sub, 1)), axis=3
-    ).reshape(b, kk, m_sub)
-    codes_u = codes_sel.astype(jnp.int32) & 0xFF
-    x = _dequant(codes_u.reshape(b * kk, m_sub), codebooks,
-                 dtype=jnp.float32).reshape(b, kk, -1)
-    if res_cents is not None:
-        x = x + jnp.take(res_cents,
-                         jnp.take(row2list, rows_c, axis=0), axis=0)
-    return exact_rerank_decoded(x, q_c, q_norm, top_scores, top_rows,
-                                metric, k)
-
-
-def _expand_slots(slot_table, lists, v_tile, v_col, v_len, tile_n):
-    """Expand selected ORIGINAL lists into their sublist DMA windows via
-    the slot table (shared by the SQ8 and PQ table-form queries): returns
-    step-padded flattened (ti, c0, lo, hi) probe operands, the padded
-    budget ``n_probe``, ``s_max``, and the ``flat`` padder for extra
-    per-slot operands. Dead (-1) slots become zero-length windows whose
-    DMAs the kernel skips."""
-    b = lists.shape[0]
-    slots = slot_table[lists]                    # (B, n_orig, S_max)
-    s_max = slot_table.shape[1]
-    dead = slots < 0
-    slots_c = jnp.maximum(slots, 0)
-    ln = jnp.where(dead, 0, v_len[slots_c])
-    ti = jnp.where(dead, 0, v_tile[slots_c])
-    col = jnp.where(dead, 0, v_col[slots_c])
-    c0 = jnp.minimum((col // 128) * 128, tile_n - W_TILED)
-    lo = col - c0
-    hi = lo + ln
-    # Pad the flattened budget to the kernel's per-step tile.
-    p_raw = lists.shape[1] * s_max
-    n_probe = -(-p_raw // P_STEP_TILED) * P_STEP_TILED
-    pad = n_probe - p_raw
-
-    def flat(x, dtype=jnp.int32):
-        x = x.reshape(b, p_raw)
-        if pad:
-            x = jnp.concatenate(
-                [x, jnp.zeros((b, pad), dtype)], axis=1)
-        return x
-
-    return flat(ti), flat(c0), flat(lo), flat(hi), n_probe, s_max, flat
-
-
-@partial(jax.jit, static_argnames=("k", "nprobe_orig", "interpret",
-                                   "rerank", "metric"))
-def ivf_query_dma_tiled_table_pq(db3c: jnp.ndarray, s2t: jnp.ndarray,
-                                 codebooks: jnp.ndarray,
-                                 perm: jnp.ndarray,
-                                 centroids: jnp.ndarray,
-                                 slot_table: jnp.ndarray,
-                                 v_tile: jnp.ndarray, v_col: jnp.ndarray,
-                                 v_len: jnp.ndarray, q: jnp.ndarray, *,
-                                 k: int, nprobe_orig: int,
-                                 interpret: bool = False,
-                                 rerank: str = "gather",
-                                 res_cents=None, row2list=None,
-                                 metric: str = "euclidean"
-                                 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """
-    Tiled IVF-PQ query with original-centroid probe selection — the
-    reference's 'IVF<n>,PQ<M>' capacity configuration (faiss.py:190)
-    served at DMA-kernel speed. Probe selection ranks the (C, d)
-    original centroids in the ORIGINAL dim order; the ADC LUT and the
-    exact decode work on the codec grid (``perm``-interleaved dims —
-    L2 distances are permutation invariant).
-
-    :param codebooks: (M, 256, dsub) float32 (codec-grid subspaces).
-    :param perm: (d_codec,) int32 dim interleave (ops/pq.pq_build_store)
-        OR a (d_codec, d_codec) float32 orthogonal transform (the OPQ
-        interleave+rotation composition, ops/opq.compose_transform) —
-        L2 is invariant under either, so the scan/ADC math is identical.
-    :param q: (B, d_pad) float32 queries, original (lane-padded) order.
-    :param res_cents: (C_orig, d_codec) float32 codec-space centroids —
-        residual mode (FAISS ``by_residual``; codes carry
-        ``x_T - c_T[list]``, s2t holds ``||c_T + r_hat||^2``).
-    :param row2list: (n_pad,) int32 original-list id per tiled row
-        (residual mode; required for rerank="gather" — score-mode
-        finalization needs only the per-probe offsets).
-    :param metric: 'euclidean' | 'inner_product' | 'cosine'. The ADC
-        LUT is a pure inner product either way; inner_product zeroes
-        the s2 stats build-side so the kernel score is exactly
-        ``-2 <q, x_hat>`` (IP is invariant under the perm/orthogonal
-        codec transform), and probe selection ranks centroids by -IP.
-        Cosine callers pass q normalized over codes of normalized rows
-        (euclidean pipeline == cosine ranking on the unit sphere) —
-        this composes with residual mode unchanged (the -2<q,c> L2
-        probe offset is valid on the sphere). Residual inner_product is
-        rejected (IP probe selection has no L2 decomposition).
-    """
-    if res_cents is not None and rerank != "score" and row2list is None:
-        raise ValueError("residual gather re-rank needs row2list")
-    if res_cents is not None and metric == "inner_product":
-        raise ValueError(
-            "residual PQ serves euclidean or cosine (IP probe selection "
-            "has no L2 -2<q,c> decomposition)")
-    n_tiles, m_sub, tile_n = db3c.shape
-    b, d_pad = q.shape
-    d_codec = perm.shape[0]
-    q = q.astype(jnp.float32)
-    if d_codec > d_pad:
-        q_ext = jnp.concatenate(
-            [q, jnp.zeros((b, d_codec - d_pad), jnp.float32)], axis=1)
-    else:
-        q_ext = q
-    if perm.ndim == 2:                              # OPQ transform
-        q_c = jnp.dot(q_ext, perm.astype(jnp.float32),
-                      preferred_element_type=jnp.float32,
-                      precision=jax.lax.Precision.HIGHEST)
-    else:
-        q_c = jnp.take(q_ext, perm, axis=1)         # codec grid
-    dsub = d_codec // m_sub
-    lut = jnp.einsum(
-        "bms,mvs->bmv", q_c.reshape(b, m_sub, dsub), codebooks,
-        precision=jax.lax.Precision.HIGHEST).reshape(b, m_sub * 256)
-
-    c = centroids.astype(jnp.float32)
-    ip_c = jnp.dot(q, c.T, preferred_element_type=jnp.float32,
-                   precision=jax.lax.Precision.HIGHEST)
-    if metric == "inner_product":
-        c_scores = -ip_c
-    else:
-        c_sq = jnp.sum(c * c, axis=-1)
-        c_scores = c_sq[None, :] - 2.0 * ip_c
-    _, lists = jax.lax.top_k(-c_scores, nprobe_orig)      # (B, n_orig)
-
-    ti, c0, lo, hi, n_probe, s_max, flat = _expand_slots(
-        slot_table, lists, v_tile, v_col, v_len, tile_n)
-
-    probe_off = None
-    if res_cents is not None:
-        # Per-ORIGINAL-list -2<q, c>, broadcast over its sublist slots
-        # (padded slots score +inf regardless — their windows are empty).
-        off_orig = -2.0 * jnp.take_along_axis(ip_c, lists, axis=1)
-        probe_off = flat(jnp.broadcast_to(
-            off_orig[..., None], (b, nprobe_orig, s_max)), jnp.float32)
-
-    return _tiled_scan_finish_pq(db3c, s2t, codebooks, q_c, lut,
-                                 ti, c0, lo, hi,
-                                 k=k, n_probe=n_probe,
-                                 interpret=interpret, rerank=rerank,
-                                 probe_off=probe_off,
-                                 res_cents=res_cents, row2list=row2list,
-                                 metric=metric)
-
-
-def build_slot_table(v_orig, c_lists: int):
-    """(C, S_max) int32 table mapping each original list to its sublist
-    slot ids (-1 padded) — the probe-selection form that ranks ORIGINAL
-    centroids only (the chunked capacity layout splits every list ~once
-    per chunk, so ranking the duplicated virtual centroids would cost a
-    V~=chunks*C-wide matmul + top_k per batch)."""
-    import numpy as np
-    v_orig = np.asarray(v_orig)
-    counts = np.bincount(v_orig, minlength=c_lists)
-    s_max = int(counts.max())
-    table = np.full((c_lists, s_max), -1, dtype=np.int32)
-    fill = np.zeros(c_lists, dtype=np.int64)
-    for slot, li in enumerate(v_orig):
-        table[li, fill[li]] = slot
-        fill[li] += 1
-    return table
-
-
-@partial(jax.jit, static_argnames=("k", "nprobe_orig", "interpret",
-                                   "rerank", "metric"))
-def ivf_query_dma_tiled_table(db3: jnp.ndarray, s2t: jnp.ndarray,
-                              a: jnp.ndarray, b_codec: jnp.ndarray,
-                              centroids: jnp.ndarray,
-                              slot_table: jnp.ndarray,
-                              v_tile: jnp.ndarray, v_col: jnp.ndarray,
-                              v_len: jnp.ndarray, q: jnp.ndarray, *,
-                              k: int, nprobe_orig: int,
-                              interpret: bool = False,
-                              rerank: str = "gather",
-                              metric: str = "euclidean"
-                              ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """
-    Tiled IVF query with ORIGINAL-centroid probe selection: rank the
-    (C, d) original centroids, take exactly the ``nprobe_orig`` nearest
-    (FAISS-faithful by construction — no virtual-slot eligibility
-    thresholding needed), and expand each via ``slot_table`` to its
-    sublist windows. The probe budget is nprobe_orig * S_max with dead
-    pad slots skipping their DMAs — at 100M scale this replaces a
-    ~262K-wide duplicated-centroid matmul + top_k per batch with a
-    16K-wide one.
-
-    ``metric``: 'euclidean' (default), 'inner_product' or 'cosine' —
-    the capacity tier's metric axis (FAISS IVF serves METRIC_INNER_PRODUCT
-    through the same list scans, faiss.py:51-67). The kernel is shared:
-    its score is always ``s2 - 2 <t, u>``, so inner_product folds the
-    query as ``t = q * a / 2`` against ZEROED row stats (the caller
-    builds s2t = 0 with +inf dead poison), making the score exactly
-    ``-<q, x_hat - b_codec>`` — a per-query constant away from -IP.
-    Probe selection ranks centroids by -IP. Cosine callers pass q and
-    centroids/codes already L2-normalized (build-side contract) and the
-    euclidean pipeline IS cosine ranking on the unit sphere.
-    """
-    n_tiles, d, tile_n = db3.shape
-    b = q.shape[0]
-    q = q.astype(jnp.float32)
-    q_norm = jnp.sqrt(jnp.sum(q * q, axis=-1))
-    if metric == "inner_product":
-        t = q * (0.5 * a[None, :])
-    else:
-        t = (q - b_codec[None, :]) * a[None, :]
-
-    c = centroids.astype(jnp.float32)
-    ip_c = jnp.dot(q, c.T, preferred_element_type=jnp.float32,
-                   precision=jax.lax.Precision.HIGHEST)
-    if metric == "inner_product":
-        c_scores = -ip_c
-    else:
-        c_sq = jnp.sum(c * c, axis=-1)
-        c_scores = c_sq[None, :] - 2.0 * ip_c
-    _, lists = jax.lax.top_k(-c_scores, nprobe_orig)      # (B, n_orig)
-
-    ti, c0, lo, hi, n_probe, _, _ = _expand_slots(
-        slot_table, lists, v_tile, v_col, v_len, tile_n)
-
-    return _tiled_scan_finish(db3, s2t, a, b_codec, q, q_norm, t,
-                              ti, c0, lo, hi,
-                              k=k, n_probe=n_probe, interpret=interpret,
-                              rerank=rerank, metric=metric)
+        name="ivf_list_scan",
+    )(ti.reshape(-1), c0.reshape(-1), lo.reshape(-1), hi.reshape(-1),
+      t.astype(jnp.float32), db3, s2t)

@@ -1,10 +1,11 @@
 """
 Exhaustive kNN scan with fused streaming top-k.
 
-This is the TPU-native replacement for the reference's delegation of flat
-search to FAISS C++ (/root/reference/smqtk_indexing/impls/nn_index/faiss.py:789-791):
-the (N, d) descriptor matrix stays resident in HBM; a ``lax.scan`` streams
-row blocks through the MXU (query @ blockᵀ), carrying a running (B, k)
+This is the device-resident replacement for the reference's delegation of
+flat search to FAISS C++ (/root/reference/smqtk_indexing/impls/nn_index/faiss.py:789-791):
+the (N, d) descriptor matrix stays resident in device memory; a
+``lax.scan`` streams row blocks through one matrix product each
+(query @ blockᵀ), carrying a running (B, k)
 best-distance/best-row state so the full (B, N) distance matrix is never
 materialized. Scoring is a per-metric monotone surrogate (cheap inside the
 scan); true distances are reconstructed only for the k selected rows.
@@ -20,8 +21,12 @@ from __future__ import annotations
 import math
 from functools import partial
 
+from typing import Tuple
+
 import jax
 import jax.numpy as jnp
+
+from smqtk_indexing_tpu.ops.device import SEG
 
 METRICS = ("euclidean", "inner_product", "cosine", "hik", "chi_square")
 
@@ -51,11 +56,11 @@ def _chunk_scores(metric: str, q: jnp.ndarray, q_norm: jnp.ndarray,
         dlt = q[:, None, :] - x[None, :, :]
         return jnp.sum(jnp.where(s > 0, dlt * dlt / jnp.where(s > 0, s, 1.0),
                                  0.0), axis=-1)
-    # precision=HIGHEST: the TPU MXU's default f32 matmul truncates inputs
-    # to bf16, whose ~8-bit mantissa on O(||x||^2)-magnitude scores corrupts
-    # the surrogate *ranking* (true neighbors drop out of the top-k before
-    # the exact re-rank can fix them). bf16-stored databases are unaffected
-    # (bf16 inputs are exact on the MXU).
+    # precision=HIGHEST: a default-precision f32 product may run in TF32
+    # (~10-bit mantissa) on the GPU's tensor cores, which on
+    # O(||x||^2)-magnitude scores corrupts the surrogate *ranking* (true
+    # neighbors drop out of the top-k before the exact re-rank can fix
+    # them). bf16-stored databases are unaffected.
     ip = jnp.dot(q, x.T, preferred_element_type=jnp.float32,
                  precision=jax.lax.Precision.HIGHEST)
     if metric == "euclidean":
@@ -89,9 +94,9 @@ def flat_topk(db: jnp.ndarray, db_sq: jnp.ndarray, db_norm: jnp.ndarray,
               chunk: int = DEFAULT_CHUNK):
     """
     Exhaustive top-k over a device-resident database: streamed score
-    blocks with a carried running top-k (see module docstring). A fused
-    Pallas variant that keeps the selection state in VMEM lives in
-    ops/pallas_scan.py and is used automatically on TPU when applicable.
+    blocks with a carried running top-k (see module docstring). The
+    two-stage segment-minima scan (:func:`flat_topk_two_stage`) serves the
+    store instead on a GPU.
 
     :param db: (N, d) database matrix (rows beyond the live set zero-padded).
     :param db_sq: (N,) float32 squared L2 norms of rows.
@@ -144,21 +149,48 @@ def flat_topk(db: jnp.ndarray, db_sq: jnp.ndarray, db_norm: jnp.ndarray,
     return _exact_selected(metric, db, q, q_sq, best_s, best_r)
 
 
-#: Segment width for the streamed segment-minima filter (matches the
-#: Pallas fused kernel's SEG so the exactness argument is shared).
-SEG_W = 128
+#: Segment width for the streamed segment-minima filter (the fused
+#: kernel's SEG, so the exactness argument is shared).
+SEG_W = SEG
+
+
+def topk_smallest(m: jnp.ndarray, kk: int, blk: int = 16
+                  ) -> Tuple[jnp.ndarray, jnp.ndarray]:
+    """
+    Exact top-kk SMALLEST over rows of (B, W) — the segment-minima
+    recursion applied once more: at most kk blocks can have a block-min
+    <= the kk-th smallest value (each such min is itself a value <= it,
+    ties interchangeable), so the top-kk blocks by min contain every true
+    top-kk element. One cheap (B, W/blk) top-k + a (B, kk*blk) top-k
+    replace one full-width ``lax.top_k``.
+
+    :return: (values ascending, indices) of shape (B, kk).
+    """
+    b, w = m.shape
+    nb = w // blk
+    if w % blk or nb <= kk:
+        neg, idx = jax.lax.top_k(-m, kk)
+        return -neg, idx.astype(jnp.int32)
+    m3 = m.reshape(b, nb, blk)
+    bmin = jnp.min(m3, axis=-1)
+    _, bidx = jax.lax.top_k(-bmin, kk)                      # (b, kk)
+    cand = jnp.take_along_axis(m3, bidx[:, :, None], axis=1) \
+        .reshape(b, kk * blk)
+    cid = (bidx[:, :, None] * blk
+           + jax.lax.broadcasted_iota(jnp.int32, (b, kk, blk), 2)) \
+        .reshape(b, kk * blk)
+    neg, sel = jax.lax.top_k(-cand, kk)
+    return -neg, jnp.take_along_axis(cid, sel, axis=1)
 
 
 def streamed_segment_minima(score_fn, blocks, n: int, chunk: int,
                             bq: int, seg: int = SEG_W) -> jnp.ndarray:
     """
     Stream chunked score blocks and emit only per-``seg``-row minima —
-    the XLA analog of the fused Pallas stage 1 (ops/pallas_scan.py):
-    each (B, chunk) score block reduces immediately (XLA fuses the min
-    into the matmul consumer, so full score blocks never round-trip HBM),
-    and NO per-chunk ``lax.top_k`` runs — per-chunk top-k sorts dominated
-    the compressed-tier scans (measured 107 qps at 100M rows; the minima
-    filter removes ~all of that cost).
+    stage 1 of the two-stage scans (:func:`flat_topk_two_stage`,
+    ops/sq8, ops/pq): each (B, chunk) score block reduces immediately and
+    NO per-chunk ``lax.top_k`` runs (a per-chunk sort over every chunk is
+    the cost the segment filter removes).
 
     :param score_fn: (chunk-slices of ``blocks``...) -> (bq, chunk)
         scores (+inf for dead rows).
@@ -175,6 +207,131 @@ def streamed_segment_minima(score_fn, blocks, n: int, chunk: int,
 
     _, mins = jax.lax.scan(body, None, blks)
     return jnp.transpose(mins, (1, 0, 2)).reshape(bq, n // seg)
+
+
+#: f32 products in the two-stage stage 1 run as three bf16 tensor-core
+#: passes (x = hi + lo, hi = bf16(x): q.x = qh.xh + qh.xl + ql.xh, about
+#: 1e-5 relative score error) against the k+8 segment margin; stage 2
+#: re-ranks in exact f32. Measured faster than three TF32 passes end to
+#: end (PERF.md).
+STAGE1_F32 = jax.lax.DotAlgorithmPreset.BF16_BF16_F32_X3
+
+
+def segment_minima(db, sq, q, chunk: int = DEFAULT_CHUNK):
+    """
+    Stage 1 of :func:`flat_topk_two_stage`: per-query, per-SEG-row minima
+    of ``sq - 2 <q, x>`` over the row-major database, streamed in
+    (B, chunk) score blocks (f32 products at STAGE1_F32; bf16/int8 rows
+    as bf16, exact for bf16 values, int8 codes and ±1 codes).
+
+    :param db: (N, d) float32 / bfloat16 / int8, N % SEG == 0.
+    :param sq: (N,) float32 per-row term (squared norms for euclidean,
+        zeros for inner products; +inf masks dead rows).
+    :param q: (B, d) float32.
+    :return: (B, N // SEG) float32 segment minima.
+    """
+    n = db.shape[0]
+    b = q.shape[0]
+    chunk = min(chunk, n)
+    if b < 16:
+        # Products run as matrix-matrix (the multi-pass algorithm has no
+        # matrix-vector lowering); the padding rows are sliced off.
+        return segment_minima(
+            db, sq, jnp.pad(q, ((0, 16 - b), (0, 0))), chunk)[:b]
+
+    def score_fn(x, s):
+        if x.dtype == jnp.float32:
+            ip = jnp.dot(q, x.T, precision=STAGE1_F32,
+                         preferred_element_type=jnp.float32)
+        else:
+            ip = jnp.dot(q.astype(jnp.bfloat16), x.astype(jnp.bfloat16).T,
+                         preferred_element_type=jnp.float32)
+        return s[None, :] - 2.0 * ip
+
+    return streamed_segment_minima(score_fn, (db, sq), n, chunk, b)
+
+
+@partial(jax.jit, static_argnames=("k", "metric"))
+def flat_topk_two_stage(db: jnp.ndarray, db_sq: jnp.ndarray,
+                        valid: jnp.ndarray, q: jnp.ndarray, *, k: int,
+                        metric: str = "euclidean",
+                        db_norm: jnp.ndarray = None
+                        ) -> Tuple[jnp.ndarray, jnp.ndarray]:
+    """
+    Exact exhaustive top-k in two stages: stage 1 keeps only per-SEG-row
+    score minima (:func:`segment_minima`), the top S = min(max(k + 8, 16),
+    N/SEG) segments per query are gathered whole, and stage 2 re-ranks
+    their rows in exact f32. Exactness of the segment pre-selection: every
+    row of the true top-k has score <= theta (the kth best), so its
+    segment's minimum is <= theta; at most k distinct segment minima can
+    be <= theta (each minimum is itself a score), so the top-(k + margin)
+    segments by minimum contain every true top-k row with slack for ties
+    and for stage 1's ~1e-5 relative score error (STAGE1_F32).
+
+    Metrics: 'euclidean' (sq - 2*ip surrogate); 'inner_product' (zero sq,
+    so -2*ip); 'cosine' (rows and query normalized for stage 1, so -2*cos;
+    needs ``db_norm``, and stage 2 computes the angular distance from the
+    raw rows).
+
+    :return: the contract of :func:`flat_topk`: (dists (B, k) ascending,
+        rows (B, k) int32; +inf / -1 padding).
+    """
+    assert metric in ("euclidean", "inner_product", "cosine")
+    n, d = db.shape
+    b = q.shape[0]
+    q = q.astype(jnp.float32)
+    q_sq = jnp.sum(q * q, axis=-1)
+    q_norm = jnp.sqrt(q_sq)
+    q_stage1 = q
+    db_stage1 = db
+    if metric == "inner_product":
+        db_sq = jnp.zeros_like(db_sq)
+    elif metric == "cosine":
+        assert db_norm is not None, "cosine needs db_norm"
+        db_sq = jnp.zeros_like(db_sq)
+        q_stage1 = q / jnp.where(q_norm == 0, 1.0, q_norm)[:, None]
+        nrm = jnp.where(db_norm == 0, 1.0, db_norm)
+        db_stage1 = (db.astype(jnp.float32) / nrm[:, None]).astype(db.dtype)
+    # Exactness needs only k-1 segments (each segment-min < theta_k is
+    # itself a distinct score < theta_k); +8 absorbs ties at theta_k, where
+    # any tie choice is a valid top-k.
+    s_keep = min(max(k + 8, 16), n // SEG)
+    minima = segment_minima(
+        db_stage1, jnp.where(valid, db_sq, jnp.inf).astype(jnp.float32),
+        q_stage1)
+    smin, sid = topk_smallest(minima, s_keep)
+    sid = jnp.where(jnp.isinf(smin), -1, sid)
+
+    # Stage 2: gather kept segments' rows; exact distances; final top-k.
+    # Per-row side arrays gather SEGMENT-SHAPED ((b, s_keep, SEG) blocks
+    # of 128 contiguous elements), not as scattered single elements.
+    sid_c = jnp.maximum(sid, 0)
+    rows = (sid_c[..., None] * SEG
+            + jax.lax.broadcasted_iota(jnp.int32, (b, s_keep, SEG), 2))
+    rows_flat = rows.reshape(b, s_keep * SEG)
+    alive = (sid[..., None] >= 0) \
+        & jnp.take(valid.reshape(n // SEG, SEG), sid_c, axis=0)
+    alive = alive.reshape(b, s_keep * SEG)
+    cand = jnp.take(db.reshape(n // SEG, SEG, d), sid_c, axis=0) \
+        .reshape(b, s_keep * SEG, d).astype(jnp.float32)
+    if metric == "inner_product":
+        exact = -jnp.sum(cand * q[:, None, :], axis=-1)
+    elif metric == "cosine":
+        cn = jnp.take(db_norm.reshape(n // SEG, SEG), sid_c, axis=0) \
+            .reshape(b, s_keep * SEG)
+        ip = jnp.sum(cand * q[:, None, :], axis=-1)
+        denom = q_norm[:, None] * cn
+        sim = jnp.clip(ip / jnp.where(denom == 0, 1.0, denom), -1.0, 1.0)
+        exact = 2.0 * jnp.arccos(sim) / math.pi
+    else:
+        diff = cand - q[:, None, :]
+        exact = jnp.sqrt(jnp.maximum(jnp.sum(diff * diff, axis=-1), 0.0))
+    exact = jnp.where(alive, exact, jnp.inf)
+    out_d, sel = topk_smallest(exact, k)
+    out_rows = jnp.take_along_axis(rows_flat, sel, axis=1) \
+        .astype(jnp.int32)
+    out_rows = jnp.where(jnp.isinf(out_d), -1, out_rows)
+    return out_d, out_rows
 
 
 def exact_rerank_decoded(x: jnp.ndarray, q: jnp.ndarray,
@@ -219,7 +376,7 @@ def pad_to_k(dists: jnp.ndarray, rows: jnp.ndarray, k: int):
     """Honor the (B, k) return contract when a candidate budget caps the
     selection width below k: truncate to k and pad with +inf / -1. The
     ONE implementation of this epilogue — the tiled score-mode finisher
-    (ops/pallas_ivf) and the sharded per-shard merges
+    (ops/ivf_code) and the sharded per-shard merges
     (parallel/sharded_ivf_code) share it."""
     b, kk = dists.shape
     d_out, r_out = dists[:, :k], rows[:, :k]

@@ -5,17 +5,17 @@ The capacity tier the reference exposes through FAISS's factory grammar
 (``SQ8`` / ``PQx`` codecs,
 /root/reference/smqtk_indexing/impls/nn_index/faiss.py:190,368-386): vectors
 are stored as one int8 code per dimension with a per-dimension affine codec
-(x_d ~= a_d * u_d + b_d), cutting HBM residency 4x vs float32 (~120M vectors
-of d=128 on a 16GB chip vs ~30M).
+(x_d ~= a_d * u_d + b_d), cutting device-memory residency 4x vs float32.
 
-TPU-first formulation: the scan never dequantizes the database. With
+The scan never dequantizes the database. With
 r = q - b and t = r * a,
 
     ||q - x_hat||^2 = sum(r^2) - 2 * <t, u> + sum(a^2 u^2)
 
 so the streamed score block is ONE matmul of the query-side ``t`` against
 the raw int8 codes (cast to bfloat16 in-register — integers in [-127, 127]
-are exact in bf16, so the MXU sees exact code values) plus a precomputed
+are exact in bf16, so the tensor cores see exact code values) plus a
+precomputed
 per-row ``s2 = sum(a^2 u^2)`` — the same surrogate shape as the float scan
 (ops/scan.py). Selection carries a k+8 margin and the winners are re-scored
 from dequantized float32 rows, so reported distances are exact with respect
@@ -127,33 +127,17 @@ def sq8_row_stats(codes: jnp.ndarray, a: jnp.ndarray, b: jnp.ndarray
 def _code_ip(t: jnp.ndarray, codes: jnp.ndarray) -> jnp.ndarray:
     """(B, C) inner products of query-side t against int8 codes: codes cast
     to bf16 in-register (integers in [-127,127] are EXACT in bf16, so the
-    MXU sees true code values; t's bf16 rounding is ~2^-8 relative score
-    noise absorbed by the k+8 selection margin + exact re-rank)."""
+    product sees true code values; t's bf16 rounding is ~2^-8 relative
+    score noise absorbed by the k+8 selection margin + exact re-rank)."""
     return jnp.dot(t.astype(jnp.bfloat16), codes.astype(jnp.bfloat16).T,
                    preferred_element_type=jnp.float32)
 
 
-def _i8dot_q(t: jnp.ndarray, sq_row: jnp.ndarray):
-    """Quantize the query-side operand to int8 with ONE global scale g
-    (max |t| / 127 across the batch) and pre-divide the stage-1 row
-    stats by g: the kernel's raw int32 products then satisfy
-    score_true ~= g * (sq/g - 2 <t_i8, u>), a positive per-batch rescale
-    of the surrogate — ranking-invariant, +inf dead-row poison preserved
-    — selecting the int8 x int8 MXU dot (2x bf16 rate on v5e; rounding
-    ~2^-8 relative, the same order as the bf16 path's documented
-    margin). Stage 2 rescores the winners in f32 as usual."""
-    g = jnp.maximum(jnp.max(jnp.abs(t)) / 127.0, 1e-30)
-    t_i8 = jnp.clip(jnp.round(t / g), -127, 127).astype(jnp.int8)
-    return t_i8, sq_row / g
-
-
-@partial(jax.jit, static_argnames=("k", "metric", "chunk", "interpret",
-                                   "i8dot"))
+@partial(jax.jit, static_argnames=("k", "metric", "chunk"))
 def sq8_topk(codes: jnp.ndarray, a: jnp.ndarray, b: jnp.ndarray,
              s2: jnp.ndarray, nrm: jnp.ndarray, valid: jnp.ndarray,
              q: jnp.ndarray, *, k: int, metric: str = "euclidean",
-             chunk: int = DEFAULT_CHUNK, codes_t: jnp.ndarray = None,
-             interpret: bool = False, i8dot: bool = False
+             chunk: int = DEFAULT_CHUNK
              ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """
     Exhaustive top-k over an SQ8-coded database.
@@ -171,12 +155,6 @@ def sq8_topk(codes: jnp.ndarray, a: jnp.ndarray, b: jnp.ndarray,
     :param nrm: (N,) float32 dequantized row norms.
     :param valid: (N,) bool row liveness.
     :param q: (B, d) float32 queries.
-    :param codes_t: Optional (d, N) TRANSPOSED int8 code mirror — routes
-        stage 1 through the fused Pallas kernel
-        (ops/pallas_scan.segment_minima casts int8 tiles to bf16
-        in-VMEM: 1 byte/dim HBM traffic at full MXU rate). Requires
-        euclidean/inner_product, N % TILE_N == 0, and costs one extra
-        byte/dim of residency; stage 2 / exact re-rank are unchanged.
     :return: (dists (B, k) float32 ascending, rows (B, k) int32;
         +inf / -1 padding).
     """
@@ -222,44 +200,19 @@ def sq8_topk(codes: jnp.ndarray, a: jnp.ndarray, b: jnp.ndarray,
         neg, rows = jax.lax.top_k(-s, kk)
         best_s, best_r = -neg, rows.astype(jnp.int32)
     else:
-        # Two-stage streaming (the fused flat scan's structure,
-        # ops/pallas_scan.py, in XLA): stream SEGMENT MINIMA only (no
+        # Two-stage streaming (ops/scan.flat_topk_two_stage's
+        # structure): stream SEGMENT MINIMA only (no
         # per-chunk top-k), pick the k+16 best segments per query — every
         # segment holding a true top-k row has min <= the k-th best score,
         # and at most k(+ties) segments can — then rescore just those
         # segments' rows with the same surrogate and keep the kk row
         # winners. The doubled (segment, then row) margin covers the bf16
         # surrogate noise twice over.
-        from smqtk_indexing_tpu.ops.pallas_scan import topk_smallest
         from smqtk_indexing_tpu.ops.scan import (
-            SEG_W, streamed_segment_minima,
+            SEG_W, streamed_segment_minima, topk_smallest,
         )
-        if codes_t is not None:
-            # Fused Pallas stage 1 over the int8 mirror. Stage-1 values
-            # only rank segments, so inner_product's dropped qb_const
-            # (a per-query additive constant) cannot change selection.
-            if metric not in ("euclidean", "inner_product"):
-                raise ValueError(
-                    "codes_t (fused stage 1) serves euclidean/"
-                    f"inner_product only, not {metric!r} — cosine/hik "
-                    "need per-row normalization the kernel surrogate "
-                    "cannot express.")
-            from smqtk_indexing_tpu.ops.pallas_scan import segment_minima
-            penalty = jnp.where(valid, 0.0, jnp.inf) \
-                .astype(jnp.float32).reshape(1, n)
-            sq_row = s2.reshape(1, n) if metric == "euclidean" \
-                else jnp.zeros((1, n), jnp.float32)
-            t_k = t
-            if i8dot:
-                # int8 x int8 stage 1 (opt-in, SMQTK_TPU_SQ8_I8DOT at
-                # the store layer): minima come back rescaled by 1/g —
-                # ranking-invariant, and downstream only ranks them.
-                t_k, sq_row = _i8dot_q(t, sq_row)
-            minima = segment_minima(codes_t, sq_row, penalty, t_k,
-                                    interpret=interpret)
-        else:
-            minima = streamed_segment_minima(
-                scores_of, (codes, s2, nrm, valid), n, chunk, bq)
+        minima = streamed_segment_minima(
+            scores_of, (codes, s2, nrm, valid), n, chunk, bq)
         s_keep = min(k + 16, n // SEG_W)
         smin, sid = topk_smallest(minima, s_keep)
         sid = jnp.where(jnp.isinf(smin), -1, sid)
@@ -304,126 +257,4 @@ def sq8_topk(codes: jnp.ndarray, a: jnp.ndarray, b: jnp.ndarray,
     from smqtk_indexing_tpu.ops.scan import exact_rerank_decoded
     sel_codes = jnp.take(codes, jnp.maximum(best_r, 0), axis=0)
     x = sel_codes.astype(jnp.float32) * a + b        # (B, kk, d)
-    return exact_rerank_decoded(x, q, q_norm, best_s, best_r, metric, k)
-
-
-@partial(jax.jit, static_argnames=("k", "metric", "interpret", "i8dot"))
-def sq8_topk_blocked(codes_blk: jnp.ndarray, a: jnp.ndarray,
-                     b: jnp.ndarray, s2: jnp.ndarray, valid: jnp.ndarray,
-                     q: jnp.ndarray, *, k: int,
-                     metric: str = "euclidean", interpret: bool = False,
-                     i8dot: bool = False
-                     ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """
-    Exhaustive SQ8 top-k over a SINGLE-COPY transposed layout — no flat
-    copy, no separate mirror, so it is the capacity-tier configuration
-    (100M rows/chip). Layout dispatch by trailing dim:
-
-    - (n_tiles, d, TILE_N) **tiled** (trailing dim 4096, preferred):
-      stage 1 = ops/pallas_scan.segment_minima_tiled (the flat kernel's
-      full-size MXU dots over contiguous blocks), stage 2 gathers
-      (d, 128) column slices via the Pallas DMA gather
-      (seg_gather_tiled). Measured at 100M x 128, B=128: **1835 qps**
-      vs 1123 for the row-major XLA streamed scan and 633 for the
-      per-segment blocked kernel below.
-    - (N/128, d, 128) **blocked** (trailing dim 128): one tiny dot per
-      segment (segment_minima_blocked) — measured SLOWER (Mosaic loop
-      overhead); kept for reference/tests.
-
-    Euclidean / inner_product only (stage-1 surrogate form); distances
-    exact w.r.t. the quantized vectors via the shared f32 re-rank.
-
-    :param codes_blk: (nseg, d, 128) int8, nseg % 128 == 0.
-    :param s2: (N,) float32 sum((a*u)^2) in ROW order.
-    :param valid: (N,) bool in ROW order.
-    :return: (dists (B, k) ascending, ROW ids (B, k) int32).
-    """
-    from smqtk_indexing_tpu.ops.pallas_scan import (
-        SEG, segment_minima_blocked, segment_minima_tiled2,
-        topk_segments_stepmajor, topk_smallest,
-    )
-    from smqtk_indexing_tpu.ops.scan import exact_rerank_decoded
-
-    if metric not in ("euclidean", "inner_product"):
-        raise ValueError(
-            "sq8_topk_blocked serves euclidean/inner_product (see "
-            "sq8_topk for the other metrics).")
-    n_outer, d, trail = codes_blk.shape
-    tiled = trail != SEG            # (n_tiles, d, TILE_N) variant
-    n = n_outer * trail
-    nseg = n // SEG
-    bq = q.shape[0]
-    q = q.astype(jnp.float32)
-    q_norm = jnp.sqrt(jnp.sum(q * q, axis=-1))
-    t = (q - b[None, :]) * a[None, :] if metric == "euclidean" \
-        else q * a[None, :]
-    qb_const = q @ b
-
-    sq_flat = s2 if metric == "euclidean" \
-        else jnp.zeros((n,), jnp.float32)
-    pen_flat = jnp.where(valid, 0.0, jnp.inf).astype(jnp.float32)
-    seg = SEG
-    s_keep = min(k + 16, nseg)
-    t1, sq1 = t, sq_flat
-    if i8dot:
-        # int8 x int8 stage 1 (opt-in, SMQTK_TPU_SQ8_I8DOT at the call
-        # sites): stage-1 minima come back rescaled by 1/g —
-        # ranking-invariant (one positive scale per batch, +inf poison
-        # preserved) and used only for selection; stage 2 below rescores
-        # the gathered candidates from the unscaled operands.
-        t1, sq1 = _i8dot_q(t, sq_flat)
-    if tiled:
-        # Dual-output stage 1: selection runs hierarchically on the
-        # in-kernel 16-segment block minima in STEP-MAJOR layout — the
-        # transposed full-minima reduce cost ~21 ms/batch at 100M
-        # (tools/profile_100m.py).
-        m1, m2 = segment_minima_tiled2(
-            codes_blk, sq1.reshape(1, n), pen_flat.reshape(1, n), t1,
-            interpret=interpret)
-        smin, sid = topk_segments_stepmajor(m1, m2, s_keep)
-    else:
-        minima = segment_minima_blocked(
-            codes_blk, sq1.reshape(nseg, SEG),
-            pen_flat.reshape(nseg, SEG), t1, interpret=interpret)
-        smin, sid = topk_smallest(minima, s_keep, blk=16)
-    sid = jnp.where(jnp.isinf(smin), -1, sid)
-    sid_c = jnp.maximum(sid, 0)
-    m_rows = s_keep * seg
-    rows = (sid_c[..., None] * seg
-            + jax.lax.broadcasted_iota(jnp.int32, (bq, s_keep, seg), 2)) \
-        .reshape(bq, m_rows)
-    if tiled:
-        # (d, SEG) strided column slices via a Pallas DMA gather — any
-        # XLA gather/indexing over the 12GB parameter imposes a
-        # non-default layout preference on it and XLA inserts a
-        # full-array relayout copy (measured OOM at 100M).
-        from smqtk_indexing_tpu.ops.pallas_scan import seg_gather_tiled
-        cand_blk = seg_gather_tiled(codes_blk, sid_c,
-                                    interpret=interpret)
-    else:
-        # Contiguous (d, 128) block gather.
-        cand_blk = jnp.take(codes_blk, sid_c, axis=0)
-    cand = jnp.transpose(cand_blk, (0, 1, 3, 2)) \
-        .reshape(bq, m_rows, d)      # (B, s_keep, d, SEG) -> rows
-    alive = (sid[..., None] >= 0) \
-        & jnp.take(valid.reshape(nseg, seg), sid_c, axis=0)
-    alive = alive.reshape(bq, m_rows)
-    ip = jnp.einsum("bmd,bd->bm", cand.astype(jnp.bfloat16),
-                    t.astype(jnp.bfloat16),
-                    preferred_element_type=jnp.float32)
-    if metric == "inner_product":
-        s = -(ip + qb_const[:, None])
-    else:
-        s = jnp.take(s2.reshape(nseg, seg), sid_c, axis=0) \
-            .reshape(bq, m_rows) - 2.0 * ip
-    s = jnp.where(alive, s, jnp.inf)
-    kk = min(k + 8, m_rows)
-    sv, sel = topk_smallest(s, kk)
-    best_s = sv
-    best_r = jnp.take_along_axis(rows, sel, axis=1).astype(jnp.int32)
-    best_r = jnp.where(jnp.isinf(best_s), -1, best_r)
-
-    sel_cand = jnp.take_along_axis(
-        cand, jnp.maximum(sel, 0)[..., None], axis=1)
-    x = sel_cand.astype(jnp.float32) * a + b
     return exact_rerank_decoded(x, q, q_norm, best_s, best_r, metric, k)

@@ -1,9 +1,9 @@
 """
 Device-resident, growable vector store with UID bookkeeping.
 
-TPU-first inversion of the reference's storage triple-bookkeeping
+Device-first inversion of the reference's storage triple-bookkeeping
 (/root/reference/smqtk_indexing/impls/nn_index/faiss.py:260-274): vectors live
-once in a padded HBM matrix; the host keeps a float32 mirror (the persistence
+once in a padded device matrix; the host keeps a float32 mirror (the persistence
 and compaction source of truth), a row->UID array and UID->row dict. Removal
 is a validity-mask flip (the reference's ``remove_ids`` C++ call,
 faiss.py:675, becomes a mask update); capacity doubles on growth and the
@@ -62,7 +62,7 @@ class VectorStore:
         """
         :param mesh: Optional 1-D ``jax.sharding.Mesh`` — when given, device
             arrays are row-sharded across it and queries run the per-shard
-            scan + ICI all-gather merge (parallel/sharded_scan.py). Mesh
+            scan + k-sized all-gather merge (parallel/sharded_scan.py). Mesh
             sizes are powers of two, so they always divide the capacity
             quantum.
         """
@@ -75,32 +75,16 @@ class VectorStore:
         self._lock = threading.RLock()
         self._clear_state()
 
-    def _fused_eligible(self, metric: str) -> bool:
-        """Use the Pallas fused kernel (ops/pallas_scan.py): single real
-        TPU chip, matmul-form metric, capacity tiled for the kernel. Costs
-        a persistent transposed copy of the database in HBM."""
-        from smqtk_indexing_tpu.ops.device import tpu_kernel_enabled
-        from smqtk_indexing_tpu.ops.pallas_scan import TILE_N
-        return (tpu_kernel_enabled("SMQTK_TPU_NO_FUSED")
-                and metric in ("euclidean", "inner_product", "cosine")
+    def _two_stage_eligible(self, metric: str) -> bool:
+        """Serve through the two-stage segment-minima scan
+        (ops/scan.flat_topk_two_stage) — measured faster than the
+        streaming scan on the GPU (PERF.md): single device, matmul-form
+        metric, float storage, capacity of at least one tile."""
+        from smqtk_indexing_tpu.ops.device import TILE_N, on_gpu
+        return (metric in ("euclidean", "inner_product", "cosine")
                 and self._dtype_name in ("float32", "bfloat16")
                 and self._mesh is None and self._capacity >= TILE_N
-                and self._capacity % TILE_N == 0)
-
-    def _sq8_fused_eligible(self, metric: str) -> bool:
-        """Route the SQ8 scan's stage 1 through the fused Pallas kernel
-        (transposed int8 mirror, +1 byte/dim residency): real TPU,
-        matmul-form metric, capacity past the single-chunk scan and
-        tiled for the kernel."""
-        from smqtk_indexing_tpu.ops.device import tpu_kernel_enabled
-        from smqtk_indexing_tpu.ops.pallas_scan import TILE_N
-        from smqtk_indexing_tpu.ops.sq8 import DEFAULT_CHUNK
-        return (self._dtype_name == "sq8"
-                and tpu_kernel_enabled("SMQTK_TPU_NO_FUSED")
-                and metric in ("euclidean", "inner_product")
-                and self._mesh is None
-                and self._capacity > DEFAULT_CHUNK
-                and self._capacity % TILE_N == 0)
+                and on_gpu(self._dev))
 
     # ------------------------------------------------------------------
     # state
@@ -114,8 +98,6 @@ class VectorStore:
         self._n_live = 0
         # device side
         self._dev = None
-        self._dev_t = None   # transposed copy for the fused TPU kernel
-        self._dev_t_metric = None  # metric the mirror was built for
         self._dev_sq = None
         self._dev_norm = None
         self._dev_valid = None
@@ -291,7 +273,6 @@ class VectorStore:
                 self._host, self._valid_host, self._capacity, d_pad,
                 self._dim, codec=codec)
             self._dev_valid = jnp.asarray(valid)
-            self._dev_t = None
             if self._mesh is not None:
                 from smqtk_indexing_tpu.parallel.mesh import shard_rows
                 self._dev = shard_rows(self._mesh, self._dev)
@@ -310,7 +291,6 @@ class VectorStore:
                 pq_m, rotate=_pq_rotate(self._dtype_name), codec=codec)
             self._dev_norm = jnp.sqrt(jnp.maximum(self._dev_sq, 0.0))
             self._dev_valid = jnp.asarray(valid)
-            self._dev_t = None
             if self._mesh is not None:
                 from smqtk_indexing_tpu.parallel.mesh import shard_rows
                 self._dev = shard_rows(self._mesh, self._dev)
@@ -325,7 +305,6 @@ class VectorStore:
         self._dev_sq = jnp.asarray(sq)
         self._dev_norm = jnp.sqrt(self._dev_sq)
         self._dev_valid = jnp.asarray(valid)
-        self._dev_t = None  # rebuilt lazily on the first fused query
         if self._mesh is not None:
             from smqtk_indexing_tpu.parallel.mesh import shard_rows
             self._dev = shard_rows(self._mesh, self._dev)
@@ -341,7 +320,6 @@ class VectorStore:
             self._upload_full()
             return
         d_pad = pad_dim(self._dim)  # type: ignore[arg-type]
-        self._dev_t = None  # transposed mirror is stale after row writes
         if self._dtype_name == "sq8":
             # Encode with the codec trained at build (out-of-range values
             # clip — the FAISS scalar-quantizer add-after-train contract).
@@ -433,35 +411,7 @@ class VectorStore:
             n_live = self._n_live
             cap = self._capacity
             d = self._dim
-            # The fused kernel's transposed mirror must come from the SAME
-            # critical section as dev: a concurrent add() between lock
-            # acquisitions would otherwise mix two database versions
-            # (stage-1 selection on one, stage-2 re-rank on the other).
-            use_fused = self._fused_eligible(metric)
-            use_sq8_fused = self._sq8_fused_eligible(metric)
-            if use_sq8_fused:
-                if self._dev_t is None or self._dev_t_metric != "sq8raw":
-                    self._dev_t = jnp.asarray(self._dev.T)
-                    self._dev_t_metric = "sq8raw"
-                sq8_dev_t = self._dev_t
-            if use_fused:
-                # The mirror's CONTENT depends on the metric (cosine uses
-                # row-normalized vectors): key the cache by metric so a
-                # store queried with different metrics never reuses the
-                # wrong mirror.
-                mirror_kind = "cosine" if metric == "cosine" else "raw"
-                if self._dev_t is None \
-                        or self._dev_t_metric != mirror_kind:
-                    if mirror_kind == "cosine":
-                        norm = jnp.where(self._dev_norm == 0, 1.0,
-                                         self._dev_norm)
-                        self._dev_t = jnp.asarray(
-                            (self._dev / norm[:, None])
-                            .astype(self._dev.dtype).T)
-                    else:
-                        self._dev_t = jnp.asarray(self._dev.T)
-                    self._dev_t_metric = mirror_kind
-                dev_t = self._dev_t
+            use_two_stage = self._two_stage_eligible(metric)
 
         q = np.atleast_2d(np.asarray(q, dtype=np.float32))
         if q.shape[1] != d:
@@ -502,16 +452,10 @@ class VectorStore:
                                                       pq_rot))),
                 k=k_dev, metric=metric)
         elif self._dtype_name == "sq8" and self._mesh is None:
-            import os
             from smqtk_indexing_tpu.ops.sq8 import sq8_topk
-            # Opt-in int8 x int8 stage-1 dot (2x bf16 MXU rate on v5e);
-            # flag read here, un-jitted, so toggles take effect per call.
-            i8 = (use_sq8_fused
-                  and os.environ.get("SMQTK_TPU_SQ8_I8DOT") == "1")
             dists, rows = sq8_topk(
                 dev, sq8_a, sq8_b, dev_sq, dev_norm,
-                dev_valid, jnp.asarray(q_pad), k=k_dev, metric=metric,
-                codes_t=sq8_dev_t if use_sq8_fused else None, i8dot=i8)
+                dev_valid, jnp.asarray(q_pad), k=k_dev, metric=metric)
         elif self._dtype_name == "sq8":
             from smqtk_indexing_tpu.parallel.mesh import replicate
             from smqtk_indexing_tpu.parallel.sharded_scan import (
@@ -532,13 +476,10 @@ class VectorStore:
                 self._mesh, dev, dev_sq, dev_norm, dev_valid,
                 replicate(self._mesh, jnp.asarray(q_pad)),
                 k=k_dev, metric=metric)
-        elif use_fused:
-            from smqtk_indexing_tpu.ops.device import stage1_precision
-            from smqtk_indexing_tpu.ops.pallas_scan import flat_topk_fused
-            dists, rows = flat_topk_fused(
+        elif use_two_stage:
+            dists, rows = scan.flat_topk_two_stage(
                 dev, dev_sq, dev_valid, jnp.asarray(q_pad), k=k_dev,
-                metric=metric, db_t=dev_t, db_norm=dev_norm,
-                precision=stage1_precision())
+                metric=metric, db_norm=dev_norm)
         else:
             dists, rows = scan.flat_topk(
                 dev, dev_sq, dev_norm, dev_valid, jnp.asarray(q_pad),
@@ -583,14 +524,14 @@ class VectorStore:
 
 class HostStreamedVectorStore (VectorStore):
     """
-    The >HBM capacity tier (SURVEY.md §5 index-size scaling): the database
-    lives in HOST memory only; each query batch streams it through the
-    device in fixed-size row blocks, running the exact flat scan per block
-    and merging the per-block (B, k) winners on host. Capacity is bounded
-    by host RAM instead of the chip's HBM; per-query-batch cost is one
-    host->device transfer of the whole matrix (production TPU hosts move
-    tens of GB/s over PCIe — this tier trades that for unbounded N; for
-    HBM-resident speed use the base store, a mesh, or a compressed codec).
+    The beyond-device-memory capacity tier (SURVEY.md §5 index-size
+    scaling): the database lives in HOST memory only; each query batch
+    streams it through the device in fixed-size row blocks, running the
+    exact flat scan per block and merging the per-block (B, k) winners on
+    host. Capacity is bounded by host RAM instead of device memory;
+    per-query-batch cost is one host->device transfer of the whole matrix
+    (this tier trades that for unbounded N; for device-resident speed use
+    the base store, a mesh, or a compressed codec).
 
     Exactness: every block result is already the exact per-metric distance
     (ops/scan.flat_topk re-ranks winners exactly), so the host merge of
@@ -609,7 +550,7 @@ class HostStreamedVectorStore (VectorStore):
         if dtype not in ("float32", "bfloat16"):
             raise ValueError(
                 "Host streaming serves float32/bfloat16 (compressed codecs "
-                "are HBM-resident tiers; combining them with host "
+                "are device-resident tiers; combining them with host "
                 "streaming would re-encode per batch).")
         super().__init__(dtype=dtype)
         if block_rows is not None:

@@ -1,14 +1,14 @@
 """
-Multi-chip scaling layer.
+Multi-device scaling layer.
 
 The reference has **no distributed execution of any kind** (SURVEY.md §2.6
 parallelism census: host-side ``parallel_map`` thread/process pools and
 optional single-host FAISS-GPU offload only). This package is the
-framework's first-class replacement designed for TPU slices: the ``(N, d)``
-descriptor matrix (and packed code matrices) shard by rows across a
-``jax.sharding.Mesh``; each chip runs the same fused scan+top-k program on
-its shard; a k-sized ``all_gather`` over ICI plus an O(devices * k) merge
-produces the global result (the BASELINE.json v5e-8 Deep10M configuration).
+framework's first-class replacement for a host of cards joined all to
+all: the ``(N, d)`` descriptor matrix (and packed code matrices) shard by
+rows across a ``jax.sharding.Mesh``; each device runs the same scan+top-k
+program on its shard; a k-sized ``all_gather`` plus an O(devices * k)
+merge produces the global result.
 """
 from smqtk_indexing_tpu.parallel.mesh import (  # noqa: F401
     SHARD_AXIS, make_mesh, shard_rows,

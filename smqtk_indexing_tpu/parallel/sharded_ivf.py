@@ -3,15 +3,15 @@ Row-sharded IVF query.
 
 The globally list-sorted database row-shards contiguously across the mesh;
 a shard's inverted-list view is the clipped intersection of the global CSR
-ranges with its row span, so every shard runs the unmodified single-chip
+ranges with its row span, so every shard runs the unmodified single-device
 list-scan kernel (ops/ivf.ivf_query) against replicated centroids and its
 local offsets/lengths. Each shard probes its own ``nprobe`` best non-empty
 lists (lists cut by a shard boundary are probed by both owners), results
 merge with the standard k-sized all-gather — communication O(devices*B*k).
 
-With nprobe == n_lists this is exhaustive-exact, matching the single-chip
+With nprobe == n_lists this is exhaustive-exact, matching the single-device
 kernel; at partial nprobe per-shard probing can only widen coverage
-relative to single-chip probing of the same nprobe.
+relative to single-device probing of the same nprobe.
 """
 from __future__ import annotations
 

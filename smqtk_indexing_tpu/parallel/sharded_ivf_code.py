@@ -2,23 +2,23 @@
 Row-sharded tiled-transposed IVF serving — the capacity tier
 (``storage='code'``) over a device mesh.
 
-The single-chip capacity configuration (reference: FAISS 'IVF<n>,SQ8' /
+The single-device code tier (reference: FAISS 'IVF<n>,SQ8' /
 'IVF<n>,PQ<M>' native list scans, smqtk_indexing/impls/nn_index/faiss.py:190)
 keeps codes in the (n_tiles, d, TILE_ROWS) tiled-transposed layout and
-scans probed lists with the Pallas DMA kernels
-(ops/pallas_ivf.ivf_query_dma_tiled_table[_pq]). This module shards that
+scans probed lists with the tiled list scan
+(ops/ivf_tiled.ivf_query_tiled[_pq]). This module shards that
 layout on the TILE axis: each device owns a contiguous, tile-aligned row
 range, holds its own local sublist CSR + original->sublist slot table
 (global list spans clipped at shard boundaries, like
-parallel/sharded_ivf.shard_csr), and runs the UNMODIFIED single-chip
+parallel/sharded_ivf.shard_csr), and runs the UNMODIFIED single-device
 tiled query against replicated centroids/codecs/queries. Winners merge
-with the standard hierarchical k-sized all-gather (ICI first, DCN on 2-D
-meshes) — communication O(devices * B * k), exactly the flat/IVF pattern.
+with the standard k-sized all-gather (per mesh axis on 2-D meshes) —
+communication O(devices * B * k), exactly the flat/IVF pattern.
 
-Semantics match the single-chip tier: probe selection ranks ORIGINAL
+Semantics match the single-device tier: probe selection ranks ORIGINAL
 centroids (FAISS-faithful nprobe by construction) and every shard scans
 its clipped portion of exactly the nprobe nearest lists, so the shard
-union covers precisely the single-chip candidate set.
+union covers precisely the single-device candidate set.
 """
 from __future__ import annotations
 
@@ -49,14 +49,14 @@ def shard_tiled_layout(lens: np.ndarray, n_rows_pad: int, n_shards: int,
         list li occupies global rows [cumsum(lens)[li-1], +lens[li])).
     :param n_rows_pad: total padded rows; must divide by ``n_shards``
         into a multiple of TILE_ROWS (the shard boundary must fall on a
-        tile edge — a lane-dim DMA cannot cross tiles, and the tile axis
+        tile edge — a probe window cannot cross tiles, and the tile axis
         is the sharded axis).
     :param c_lists: original list count C.
     :return: (v_tile (S, V), v_col (S, V), v_len (S, V) int32 — padded
-        slots have len 0 (dead: the kernel skips their DMAs) — and
+        slots have len 0 (dead: the scan loads nothing for them) — and
         slot_table (S, C, S_max) int32, -1 padded).
     """
-    from smqtk_indexing_tpu.ops.pallas_ivf import (
+    from smqtk_indexing_tpu.ops.ivf_tiled import (
         TILE_ROWS, build_slot_table, build_tiled_csr,
     )
     per = n_rows_pad // n_shards
@@ -95,8 +95,7 @@ def shard_tiled_layout(lens: np.ndarray, n_rows_pad: int, n_shards: int,
                                    "rerank", "mesh", "metric"))
 def sharded_ivf_query_tiled(mesh: Mesh, db3, s2t, a, b_codec, centroids,
                             slot_table, v_tile, v_col, v_len, q, *,
-                            k: int, nprobe_orig: int,
-                            interpret: bool = False,
+                            k: int, nprobe_orig: int, interpret: bool,
                             rerank: str = "gather",
                             metric: str = "euclidean"
                             ) -> Tuple[jnp.ndarray, jnp.ndarray]:
@@ -112,12 +111,12 @@ def sharded_ivf_query_tiled(mesh: Mesh, db3, s2t, a, b_codec, centroids,
     :param q: (B, d) float32, replicated.
     :return: (dists (B, k), GLOBAL rows (B, k)), replicated.
     """
-    from smqtk_indexing_tpu.ops.pallas_ivf import ivf_query_dma_tiled_table
+    from smqtk_indexing_tpu.ops.ivf_tiled import ivf_query_tiled
 
     def local(db3_l, s2_l, a_l, b_l, c, st_l, vt_l, vc_l, vl_l, q_l):
         n_local = db3_l.shape[0] * db3_l.shape[2]
         k_loc = min(k, n_local)
-        d, r = ivf_query_dma_tiled_table(
+        d, r = ivf_query_tiled(
             db3_l, s2_l, a_l, b_l, c, st_l[0], vt_l[0], vc_l[0], vl_l[0],
             q_l, k=k_loc, nprobe_orig=nprobe_orig, interpret=interpret,
             rerank=rerank, metric=metric)
@@ -139,12 +138,11 @@ def sharded_ivf_query_tiled(mesh: Mesh, db3, s2t, a, b_codec, centroids,
       q)
 
 
-@partial(jax.jit, static_argnames=("k", "nprobe_orig", "interpret",
-                                   "rerank", "mesh", "metric"))
+@partial(jax.jit, static_argnames=("k", "nprobe_orig", "rerank", "mesh",
+                                   "metric"))
 def sharded_ivf_query_tiled_pq(mesh: Mesh, db3c, s2t, codebooks, perm,
                                centroids, slot_table, v_tile, v_col,
                                v_len, q, *, k: int, nprobe_orig: int,
-                               interpret: bool = False,
                                rerank: str = "gather",
                                res_cents=None, row2list=None,
                                metric: str = "euclidean"
@@ -163,9 +161,7 @@ def sharded_ivf_query_tiled_pq(mesh: Mesh, db3c, s2t, codebooks, perm,
     Same operand layout as :func:`sharded_ivf_query_tiled` with the PQ
     codec (codebooks + perm/OPQ transform) replicated.
     """
-    from smqtk_indexing_tpu.ops.pallas_ivf import (
-        ivf_query_dma_tiled_table_pq,
-    )
+    from smqtk_indexing_tpu.ops.ivf_tiled import ivf_query_tiled_pq
     residual = res_cents is not None
 
     def local(db3_l, s2_l, cb_l, pm_l, c, st_l, vt_l, vc_l, vl_l, q_l,
@@ -173,11 +169,10 @@ def sharded_ivf_query_tiled_pq(mesh: Mesh, db3c, s2t, codebooks, perm,
         rc_l, r2l_l = res_l if residual else (None, None)
         n_local = db3_l.shape[0] * db3_l.shape[2]
         k_loc = min(k, n_local)
-        d, r = ivf_query_dma_tiled_table_pq(
+        d, r = ivf_query_tiled_pq(
             db3_l, s2_l, cb_l, pm_l, c, st_l[0], vt_l[0], vc_l[0],
             vl_l[0], q_l, k=k_loc, nprobe_orig=nprobe_orig,
-            interpret=interpret, rerank=rerank,
-            res_cents=rc_l, row2list=r2l_l, metric=metric)
+            rerank=rerank, res_cents=rc_l, row2list=r2l_l, metric=metric)
         d, r = pad_to_k(d, r, k)
         offset = _global_shard_index(mesh) * n_local
         r = jnp.where(r >= 0, r + offset, r)

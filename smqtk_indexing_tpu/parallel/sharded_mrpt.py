@@ -1,5 +1,5 @@
 """
-Row-sharded MRPT query: per-shard leaf tables + the ICI/DCN top-k merge.
+Row-sharded MRPT query: per-shard leaf tables + the hierarchical top-k merge.
 
 The MRPT leaf scan is embarrassingly row-parallel, but the global leaf
 permutation (ops/mrpt.build_trees) indexes arbitrary rows, so naive row
@@ -13,7 +13,7 @@ contains each row exactly once, the per-shard tables are perfectly regular
 
 At query time every device descends all trees (cheap, replicated splits),
 gathers only ITS leaf segments from ITS database block (~1/S of the
-single-chip gather), scores and exact-re-ranks locally, and the per-shard
+single-device gather), scores and exact-re-ranks locally, and the per-shard
 (B, k) winners merge through the same hierarchical all-gather the flat
 scan uses (parallel/sharded_scan._hier_merge) — O(devices * B * k)
 traffic, independent of N.
@@ -128,7 +128,7 @@ def sharded_mrpt_query(mesh: Mesh, db, db_sq, valid, bases, splits,
         ok = ok.reshape(b, m) & jnp.take(va_l, rows, axis=0)
 
         # Dedupe across trees (a row lives on exactly ONE shard, so local
-        # dedupe equals the single-chip global dedupe).
+        # dedupe equals the single-device global dedupe).
         rows_s = jnp.where(ok, rows, n_loc)
         rows_sorted = jnp.sort(rows_s, axis=1)
         dup = jnp.concatenate(
@@ -137,7 +137,7 @@ def sharded_mrpt_query(mesh: Mesh, db, db_sq, valid, bases, splits,
         alive = (rows_sorted < n_loc) & ~dup
         rows_u = jnp.clip(rows_sorted, 0, n_loc - 1)
 
-        # Same k+16 surrogate margin + exact re-rank as the single-chip
+        # Same k+16 surrogate margin + exact re-rank as the single-device
         # kernel (bf16 cohort scoring); trim to k before the merge.
         k_sel = min(k + 16, m)
         top_scores, top_rows = _candidate_topk(db_l, sq_l, qf, rows_u,

@@ -1,11 +1,11 @@
 """
-Row-sharded scan kernels: per-shard fused top-k + ICI all-gather merge.
+Row-sharded scan kernels: per-shard top-k + k-sized all-gather merge.
 
 The SPMD pattern (SURVEY.md §5 "distributed communication backend"): every
-chip scans its own row shard with the exact same single-chip program
+device scans its own row shard with the exact same single-device program
 (ops/scan.flat_topk / ops/hamming.hamming_topk), converts local row ids to
 global ids with its shard offset, all-gathers the tiny (devices, B, k)
-result blocks over ICI, and merges with one more top-k — communication is
+result blocks, and merges with one more top-k — communication is
 O(devices * B * k), independent of N.
 
 ``sharded_kmeans_step`` is the distributed trainer step: local partial
@@ -49,9 +49,9 @@ def _global_shard_index(mesh: Mesh) -> jnp.ndarray:
 
 def _hier_merge(mesh: Mesh, d: jnp.ndarray, r: jnp.ndarray, k: int
                 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Hierarchical top-k merge: all-gather + merge over ICI ("shard"),
-    then — on 2-D meshes — a second k-sized merge over DCN, so the slow
-    inter-slice network carries only k results per slice."""
+    """Hierarchical top-k merge: all-gather + merge over "shard", then —
+    on 2-D meshes — a second k-sized merge over "dcn", so the slower
+    network between device groups carries only k results per group."""
     dm, rm = _merge_topk(jax.lax.all_gather(d, SHARD_AXIS),
                          jax.lax.all_gather(r, SHARD_AXIS), k)
     if DCN_AXIS in mesh.axis_names:
@@ -199,7 +199,7 @@ def sharded_rerank_topk(mesh: Mesh, q, cand, valid, *, k: int,
     Candidate-sharded exact re-rank for the LSH composite: the per-query
     candidate block (B, M, d) splits on its M axis across the mesh, each
     device scores its slice (ops/metrics.candidate_distances — the exact
-    math of the single-chip re-rank, so results are bit-identical), and the
+    math of the single-device re-rank, so results are bit-identical), and the
     per-shard (B, k) winners merge hierarchically.
 
     :return: (dists (B, k) ascending with +inf padding, positions (B, k)
@@ -240,7 +240,7 @@ def sharded_kmeans_step(mesh: Mesh, db, valid, centroids):
     """
     One data-parallel Lloyd step: each shard assigns its rows to the
     (replicated) centroids and contributes partial sums/counts; a ``psum``
-    over ICI produces the new replicated centroids.
+    over the mesh produces the new replicated centroids.
 
     :return: (new centroids (C, d) float32 replicated,
               local assignments (N,) int32 row-sharded).

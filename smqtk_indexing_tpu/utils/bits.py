@@ -5,7 +5,7 @@ Semantics match /root/reference/smqtk_indexing/utils/bits.py:4-56: big-endian
 bit order (bit 0 of the vector is the most-significant bit of the integer),
 arbitrary-precision integers (>64-bit codes).
 
-TPU-first inversion: the reference's O(bits) Python shift loops are replaced
+Device-first inversion: the reference's O(bits) Python shift loops are replaced
 by ``numpy.packbits``-based vectorized conversions, and batch helpers produce
 ``(n, words)`` uint32 packed code matrices — the device-side storage format
 for all Hamming-distance kernels (XOR + population_count instead of

@@ -6,7 +6,7 @@ against them) import ``smqtk_descriptors.utils.parallel.parallel_map`` for
 host-side element fan-out — e.g. pulling ``.vector()`` off descriptor
 elements (/root/reference/smqtk_indexing/impls/nn_index/lsh.py:27,507-509,
 mrpt.py:260-264, lsh_functor/itq.py:334). This framework's own impls do
-NOT need it: the TPU inversion batches whole element sequences into single
+NOT need it: the device-first inversion batches whole element sequences into single
 device programs (``nn_many`` / ``get_hash_batch``), so per-element host
 parallelism disappears from the hot paths. The shim exists so reference-
 style call sites keep working when ported onto this package.
@@ -15,7 +15,7 @@ Design notes vs the original:
 
 - Threads only. ``use_multiprocessing=True`` is accepted but downgraded
   to threads with a warning: forking a process that has initialized a
-  JAX backend (TPU or CPU) duplicates runtime state and deadlocks, and
+  JAX backend (GPU or CPU) duplicates runtime state and deadlocks, and
   the typical payload here (``lambda d: d.vector()``) is not
   picklable anyway. Python threads are fine for these IO/object-access
   workloads and are GIL-cooperative with numpy.

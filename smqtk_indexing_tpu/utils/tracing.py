@@ -6,7 +6,7 @@ DEBUG log lines (SURVEY.md §5; utils/progress_reporter.py, faiss.py:815-829).
 Here, on top of structured logging, the framework exposes:
 
 - ``trace_span(name)``: a context manager emitting both an
-  ``jax.profiler.TraceAnnotation`` (visible in TPU profiler timelines /
+  ``jax.profiler.TraceAnnotation`` (visible in device profiler timelines /
   Perfetto) and a wall-clock DEBUG log line. Zero overhead beyond a
   monotonic clock read when profiling is inactive.
 - ``start_server(port)`` / ``trace(log_dir)``: thin re-exports of the jax

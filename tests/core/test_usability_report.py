@@ -3,7 +3,7 @@
 The reference gates backends on importability
 (/root/reference/smqtk_indexing/impls/nn_index/faiss.py:86-89); since the
 compute stack here always imports, the operator-facing signal lives in
-``usability_report()`` — kernel tier (native TPU vs interpret fallback),
+``usability_report()`` — kernel tier (compiled GPU vs interpret fallback),
 env-flag-disabled engines, and a summary ``degraded`` bool.
 """
 import jax
@@ -17,7 +17,6 @@ from smqtk_indexing_tpu.interfaces.hash_index import HashIndex
 from smqtk_indexing_tpu.models.nn_index.flat import (
     FlatNearestNeighborsIndex,
 )
-from smqtk_indexing_tpu.models.nn_index.ivf import IvfNearestNeighborsIndex
 
 
 def test_every_impl_reports():
@@ -29,14 +28,14 @@ def test_every_impl_reports():
             assert r["class"] == impl.__name__
             assert r["usable"] is True
             # Compute-backed impls must expose the tier signal.
-            assert r["kernel_tier"] in ("tpu-pallas", "cpu-interpret")
+            assert r["kernel_tier"] in ("gpu-triton", "cpu-interpret")
             assert isinstance(r["degraded"], bool)
 
 
 def test_kernel_tier_matches_backend():
     r = FlatNearestNeighborsIndex.usability_report()
-    if jax.default_backend() == "tpu":
-        assert r["kernel_tier"] == "tpu-pallas"
+    if jax.default_backend() == "gpu":
+        assert r["kernel_tier"] == "gpu-triton"
     else:
         assert r["kernel_tier"] == "cpu-interpret"
         assert r["degraded"] is True
@@ -47,13 +46,13 @@ def test_kernel_tier_matches_backend():
 def test_forced_fallback_is_observable(monkeypatch):
     # Kill an engine via its env flag: the report must surface the flag
     # and flip degraded, matching what the serving path actually does
-    # (tpu_kernel_enabled reads the same variable).
-    monkeypatch.setenv("SMQTK_TPU_NO_DMA_IVF", "1")
-    r = IvfNearestNeighborsIndex.usability_report()
-    assert "SMQTK_TPU_NO_DMA_IVF" in r["disabled_flags"]
+    # (the native host scan reads the same variable).
+    monkeypatch.setenv("SMQTK_TPU_NO_NATIVE", "1")
+    r = FlatNearestNeighborsIndex.usability_report()
+    assert "SMQTK_TPU_NO_NATIVE" in r["disabled_flags"]
     assert r["degraded"] is True
-    monkeypatch.delenv("SMQTK_TPU_NO_DMA_IVF")
-    r2 = IvfNearestNeighborsIndex.usability_report()
+    monkeypatch.delenv("SMQTK_TPU_NO_NATIVE")
+    r2 = FlatNearestNeighborsIndex.usability_report()
     assert r2["disabled_flags"] == []
 
 

@@ -1,7 +1,7 @@
 """
 AutotunedNearestNeighborsIndex tests: FLANN-wrapper parity surface
 (/root/reference/tests/impls/nn_index/test_flann.py:143-223 behavioral
-patterns) plus calibration behavior of the TPU autotuner.
+patterns) plus calibration behavior of the device autotuner.
 """
 import numpy as np
 import pytest

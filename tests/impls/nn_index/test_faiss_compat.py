@@ -1,5 +1,5 @@
 """FaissNearestNeighborsIndex adapter: the reference's exact config
-surface served by the TPU-native engines
+surface served by this package's engines
 (/root/reference/smqtk_indexing/impls/nn_index/faiss.py:150-343)."""
 import json
 import warnings

@@ -448,37 +448,30 @@ def test_remove_duplicate_uids_no_corruption():
 
 
 def test_fused_mirror_is_metric_keyed(monkeypatch):
-    # Review regression: the cached transposed mirror's CONTENT depends on
-    # the metric (cosine normalizes); querying a store with two metrics
-    # must rebuild the mirror, never reuse the wrong one.
-    import jax.numpy as jnp
+    # The two-stage scan's stage 1 ranks cosine on normalized rows: a
+    # store queried with alternating metrics must serve each query by its
+    # own metric (forced onto the two-stage path, which the GPU takes),
+    # matching the streaming scan.
     import numpy as np
-    import smqtk_indexing_tpu.ops.pallas_scan as ps
     from smqtk_indexing_tpu.ops.store import VectorStore
 
-    captured = []
-
-    def fake_fused(dev, dev_sq, dev_valid, q, *, k, metric, db_t, db_norm,
-                   **kw):
-        captured.append((metric, np.asarray(db_t)))
-        b = q.shape[0]
-        return (jnp.zeros((b, k), jnp.float32),
-                jnp.zeros((b, k), jnp.int32))
-
-    monkeypatch.setattr(ps, "flat_topk_fused", fake_fused)
-    monkeypatch.setattr(VectorStore, "_fused_eligible",
-                        lambda self, metric: True)
     rng = np.random.default_rng(0)
-    mat = rng.normal(size=(64, 8)).astype(np.float32) * 3
+    mat = rng.normal(size=(5000, 8)).astype(np.float32) * 3
+    ref = VectorStore()
+    ref.build(mat, list(range(5000)))
+    monkeypatch.setattr(VectorStore, "_two_stage_eligible",
+                        lambda self, metric: True)
     vs = VectorStore()
-    vs.build(mat, list(range(64)))
-    vs.knn(mat[:2], 1, metric="euclidean")
-    vs.knn(mat[:2], 1, metric="cosine")
-    vs.knn(mat[:2], 1, metric="euclidean")
-    assert [m for m, _ in captured] == ["euclidean", "cosine", "euclidean"]
-    raw_t, cos_t, raw_t2 = (t for _, t in captured)
-    assert not np.allclose(raw_t, cos_t)       # normalized differs
-    assert np.allclose(raw_t, raw_t2)          # raw mirror rebuilt right
+    vs.build(mat, list(range(5000)))
+    for metric in ("euclidean", "cosine", "euclidean"):
+        d2, _, r2 = vs.knn(mat[:4], 5, metric=metric)
+        monkeypatch.setattr(VectorStore, "_two_stage_eligible",
+                            lambda self, metric: False)
+        d1, _, r1 = ref.knn(mat[:4], 5, metric=metric)
+        monkeypatch.setattr(VectorStore, "_two_stage_eligible",
+                            lambda self, metric: True)
+        assert np.array_equal(r2, r1), metric
+        np.testing.assert_allclose(d2, d1, rtol=1e-5, atol=1e-5)
 
 
 class TestSq8Storage:

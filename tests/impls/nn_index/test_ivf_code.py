@@ -1,7 +1,7 @@
 """
 IvfNearestNeighborsIndex ``storage='code'`` capacity-tier tests: the host
-mirror is int8 SQ8 codes, queries run the tiled-transposed Pallas DMA
-list-scan (interpret mode on CPU), and persistence round-trips codes +
+mirror is int8 SQ8 codes, queries run the tiled-transposed list scan
+(the SQ8 kernel in interpret mode on CPU), and persistence round-trips codes +
 codec without ever materializing float originals (the reference's FAISS
 SQ serialization contract, faiss.py:368-386).
 """
@@ -226,8 +226,8 @@ class TestIvfCodeTierPersistence:
         np.testing.assert_allclose(d0, d1, atol=1e-5)
 
 class TestIvfCodeTierPq:
-    """PQ 'code' tier: (n, M) uint8 host mirror served by the in-kernel
-    ADC one-hot tiled DMA scan (interpret mode on CPU)."""
+    """PQ 'code' tier: (n, M) uint8 host mirror served by the tiled
+    ADC list scan (plain XLA)."""
 
     def test_host_mirror_is_pq_codes(self):
         elems = _clustered()

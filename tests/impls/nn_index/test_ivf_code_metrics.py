@@ -1,6 +1,6 @@
 """
 Capacity ('code') tier metric axis: inner_product and cosine served by
-the same tiled DMA kernels (round 4 — FAISS's METRIC_INNER_PRODUCT /
+the same tiled list scans (FAISS's METRIC_INNER_PRODUCT /
 normalized-cosine usage on the same IVF factory configs, reference
 /root/reference/smqtk_indexing/impls/nn_index/faiss.py:51-67).
 

@@ -86,7 +86,7 @@ class TestFusedParity:
         nbrs, dists = idx.nn(els[17], 4)
         assert idx._fused is not None
         assert nbrs[0].uuid() == 17
-        # TPU native-precision distances carry ~1e-4 noise (bf16 MXU in
+        # Device distances may carry ~1e-4 noise (bf16 products in
         # candidate_distances — same margin as the two-dispatch path).
         assert dists[0] < 1e-3
 
@@ -136,14 +136,15 @@ class TestFusedLifecycle:
         assert res[0][0][0].uuid() == 0
 
     def test_mxu_engine_parity(self, monkeypatch):
-        """The ±1-MXU near-code engine (forced via
-        SMQTK_TPU_LSH_FUSED_MXU on a small set; interpret mode off-TPU)
-        must serve the same contract as the XOR engine — equal-Hamming
+        """The ±1 near-code engine (the GPU's engine from PM1_SCAN_MIN
+        codes, forced here on a small set) must serve the same contract
+        as the XOR engine — equal-Hamming
         code ties may legally admit different bucket supersets, so the
         assertions are contract-shaped (self-match, sorted distances,
         identical nearest result), not bit-equality."""
+        from smqtk_indexing_tpu.ops import hamming
         els = _elems(300, d=32, seed=3)
-        monkeypatch.setenv("SMQTK_TPU_LSH_FUSED_MXU", "1")
+        monkeypatch.setattr(hamming, "pm1_engine", lambda n, x: True)
         idx = _build(els)
         st = idx._fused_ready(5, 8)
         assert st is not None and st["pm1"] is not None
@@ -154,7 +155,7 @@ class TestFusedLifecycle:
             assert list(dists) == sorted(dists)
         # same index through the XOR engine: nearest result agrees
         idx._fused = None
-        monkeypatch.delenv("SMQTK_TPU_LSH_FUSED_MXU")
+        monkeypatch.setattr(hamming, "pm1_engine", lambda n, x: False)
         res_x = _q(idx, els[:16])
         assert idx._fused["pm1"] is None
         for (em, dm), (ex, dx) in zip(res_m, res_x):

@@ -153,19 +153,14 @@ class TestIvfOpqRows:
         assert nbrs[0].uuid() == 3
 
     def test_forced_tiled_routing_parity(self, monkeypatch):
-        """SMQTK_TPU_ROWS_TILED=1 forces the tiled ADC DMA kernel
-        (interpret mode on CPU) — same winners as the XLA scan path."""
+        """The tiled ADC scan (storage='code') finds the same winners as
+        the rows tier's row-major XLA scan over the same data."""
         elems, x = _correlated_elems()
-        # On TPU rows-opq routes tiled BY DEFAULT — pin the baseline to
-        # the row-major XLA scan so the A/B is real on every backend.
-        monkeypatch.setenv("SMQTK_TPU_NO_ROWS_TILED", "1")
         idx_x = self._index()
         idx_x.build_index(elems)
-        monkeypatch.delenv("SMQTK_TPU_NO_ROWS_TILED")
-        monkeypatch.setenv("SMQTK_TPU_ROWS_TILED", "1")
-        idx_t = self._index()
+        idx_t = self._index(storage="code")
         idx_t.build_index(elems)
-        assert idx_t._dev3 is not None     # routed
+        assert idx_t._dev3 is not None     # tiled engine
         assert idx_x._dev3 is None
         for qi in (3, 17, 101):
             n_x, d_x = _query(idx_x, x[qi])

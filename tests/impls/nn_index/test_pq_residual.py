@@ -3,8 +3,8 @@ Residual IVF-PQ (``pq_residual=True`` — FAISS's ``by_residual`` IVF-PQ
 behavior, the reference's default for index_factory 'IVF<n>,PQ<M>'):
 codes quantize ``x - centroid(list)``. Covers exactness w.r.t. the
 (c + r_hat) reconstruction, the recall gain on clustered data, every
-serving path (XLA scan, forced tiled ADC DMA routing, code tier exact +
-score), persistence, updates, and the OPQ composition.
+serving path (rows-tier XLA scan, tiled ADC scan of the code tier,
+exact + score), persistence, updates, and the OPQ composition.
 """
 import json
 import warnings
@@ -134,14 +134,12 @@ class TestExactness:
             np.testing.assert_allclose(dists, ref, rtol=1e-4, atol=1e-4)
 
     def test_forced_tiled_routing_parity(self, monkeypatch):
+        # Residual PQ through the tiled scan (storage='code') against the
+        # rows tier's row-major XLA scan over the same data.
         x = _clustered(n=1200)
-        # Pin the baseline row-major (TPU default routes rows-pq tiled).
-        monkeypatch.setenv("SMQTK_TPU_NO_ROWS_TILED", "1")
         idx_x = _index()
         idx_x.build_index([_elem(i, x[i]) for i in range(len(x))])
-        monkeypatch.delenv("SMQTK_TPU_NO_ROWS_TILED")
-        monkeypatch.setenv("SMQTK_TPU_ROWS_TILED", "1")
-        idx_t = _index()
+        idx_t = _index(storage="code")
         idx_t.build_index([_elem(i, x[i]) for i in range(len(x))])
         assert idx_t._dev3 is not None and idx_x._dev3 is None
         assert idx_t._row2list_dev is not None

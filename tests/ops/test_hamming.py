@@ -149,8 +149,9 @@ def test_pack_unpack_roundtrip_odd_bits():
 
 
 def test_mxu_hamming_path_matches_xor(monkeypatch):
-    """The ±1-matmul (MXU) Hamming engine must return identical distances
-    to the XOR+popcount engine (exercised in interpret mode on CPU)."""
+    """The ±1-matmul Hamming engine (the GPU's engine above
+    PM1_SCAN_MIN codes, forced here on the CPU) must return identical
+    distances to the XOR+popcount engine."""
     rng = np.random.default_rng(42)
     bits, n = 128, 4096
     mat = rng.integers(0, 2, size=(n, bits)).astype(bool)
@@ -159,7 +160,7 @@ def test_mxu_hamming_path_matches_xor(monkeypatch):
     q = mat[:8]
     d_xor, c_xor = cs.knn(q, 5)
 
-    monkeypatch.setattr(CodeStore, "_mxu_eligible", lambda self: True)
+    monkeypatch.setattr(CodeStore, "_pm1_eligible", lambda self: True)
     cs2 = CodeStore()
     cs2.build(mat)
     d_mxu, c_mxu = cs2.knn(q, 5)
@@ -172,10 +173,10 @@ def test_mxu_hamming_path_matches_xor(monkeypatch):
 def test_mxu_mirror_incremental_append(monkeypatch):
     """After a build+query, add() must update the ±1 mirror incrementally
     and keep results exact."""
-    monkeypatch.setattr(CodeStore, "_mxu_eligible", lambda self: True)
+    monkeypatch.setattr(CodeStore, "_pm1_eligible", lambda self: True)
     rng = np.random.default_rng(7)
     bits = 64
-    # Above HOST_SCAN_MAX so the MXU path (not the host scan) serves it.
+    # Above HOST_SCAN_MAX so the ±1 path (not the host scan) serves it.
     mat = rng.integers(0, 2, size=(3072, bits)).astype(bool)
     extra = rng.integers(0, 2, size=(100, bits)).astype(bool)
     cs = CodeStore()

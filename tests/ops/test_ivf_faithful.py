@@ -10,8 +10,8 @@ import numpy as np
 
 from smqtk_indexing_tpu.data.descriptor import DescriptorMemoryElement
 from smqtk_indexing_tpu.models.nn_index.ivf import IvfNearestNeighborsIndex
+from smqtk_indexing_tpu.ops.device import kernel_interpret
 from smqtk_indexing_tpu.ops.ivf import ivf_query
-from smqtk_indexing_tpu.ops.pallas_ivf import ivf_query_dma
 
 
 def _adversarial_layout():
@@ -71,25 +71,40 @@ def test_xla_kernel_legacy_budget_leaks():
     assert int(np.asarray(rr)[0, 0]) == 48
 
 
-def test_dma_kernel_faithful_nprobe1():
+def test_tiled_kernel_faithful_nprobe1():
+    # The code tier's list scan on the same adversarial layout: list A is
+    # cut into three sublists (every one must be scanned), list B holds
+    # the planted row and must not be probed at nprobe=1.
+    from smqtk_indexing_tpu.ops import sq8 as sq8_ops
+    from smqtk_indexing_tpu.ops.ivf_tiled import (
+        TILE_ROWS, build_slot_table, build_tiled_csr, ivf_query_tiled,
+    )
     db, sq, valid, cents, offsets, lens, q, first_virt = \
         _adversarial_layout()
-    n = db.shape[0]
-    # The DMA path needs N >= L_MAX; tile the layout up with far-away rows.
-    from smqtk_indexing_tpu.ops.pallas_ivf import L_MAX
-    pad = np.full((L_MAX, db.shape[1]), 100.0, dtype=np.float32)
-    db_p = jnp.asarray(np.vstack([np.asarray(db), pad]))
-    sq_p = jnp.asarray(np.concatenate(
-        [np.asarray(sq), (pad ** 2).sum(1).astype(np.float32)]))
-    valid_p = jnp.asarray(np.concatenate(
-        [np.ones(n, bool), np.zeros(L_MAX, bool)]))
-    dd, rr = ivf_query_dma(db_p, valid_p, cents, offsets, lens, q,
-                           k=8, n_probe=4, interpret=True,
-                           first_virt=first_virt, nprobe_orig=1)
+    db = np.asarray(db)
+    n, d = db.shape
+    a, b = sq8_ops.sq8_train(db)
+    codes = np.zeros((TILE_ROWS, d), np.int8)
+    codes[:n] = sq8_ops.sq8_encode_np(db, a, b)
+    u = codes.astype(np.float64)
+    s2 = ((a.astype(np.float64) * u) ** 2).sum(1).astype(np.float32)
+    s2[n:] = np.inf
+    db3 = jnp.asarray(np.ascontiguousarray(codes.T[None]))
+    v_tile, v_col, v_len, v_orig, _ = build_tiled_csr(
+        np.array([[48, 16]]), np.zeros(1, np.int64), cap=16)
+    assert (v_orig == 0).sum() == 3
+    table = build_slot_table(v_orig, 2)
+    cents2 = np.asarray(cents)[[0, 3]]
+    dd, rr = ivf_query_tiled(
+        db3, jnp.asarray(s2.reshape(1, 1, TILE_ROWS)), jnp.asarray(a),
+        jnp.asarray(b), jnp.asarray(cents2), jnp.asarray(table),
+        jnp.asarray(v_tile), jnp.asarray(v_col), jnp.asarray(v_len), q,
+        k=8, nprobe_orig=1, interpret=kernel_interpret(db3))
     rows = np.asarray(rr)[0]
     rows = rows[rows >= 0]
-    assert np.all(rows < 48)
-    d2 = np.asarray(((q[0][None, :] - db[:48]) ** 2).sum(1))
+    assert len(rows) == 8 and np.all(rows < 48)
+    dq = u[:48] * a + b
+    d2 = ((np.asarray(q)[0][None, :] - dq) ** 2).sum(1)
     assert set(rows.tolist()) == set(np.argsort(d2)[:8].tolist())
 
 

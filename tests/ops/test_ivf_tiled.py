@@ -1,16 +1,25 @@
-"""Tiled-transposed-layout IVF DMA kernel tests (interpret mode on CPU):
-the capacity configuration (IVF-SQ8 over the single-copy (n_tiles, d,
-4096) array) against float64 brute force on the dequantized codes."""
+"""Tiled-transposed-layout IVF list-scan tests (the ``storage='code'``
+tier: IVF-SQ8 over the single-copy (n_tiles, d, 4096) array) against
+float64 brute force on the dequantized codes. The list-scan kernel runs in
+interpret mode on the CPU; ``gpu``-marked tests compile it for the card."""
 import numpy as np
+import pytest
 
-import jax
 import jax.numpy as jnp
 
 from smqtk_indexing_tpu.ops import sq8 as sq8_ops
-from smqtk_indexing_tpu.ops.pallas_ivf import (
-    P_STEP_TILED, TILE_ROWS, W_TILED, build_tiled_csr, ivf_query_dma_tiled,
-    probe_budget,
+from smqtk_indexing_tpu.ops.device import kernel_interpret
+from smqtk_indexing_tpu.ops.ivf_tiled import (
+    TILE_ROWS, build_slot_table, build_tiled_csr, ivf_query_tiled,
 )
+from smqtk_indexing_tpu.ops.pallas_ivf import W, list_scores
+
+
+def _query(db3, s2t, a, b, cents, table, v_tile, v_col, v_len, q, **kw):
+    args = [jnp.asarray(x) for x in (db3, s2t, a, b, cents, table, v_tile,
+                                     v_col, v_len, q)]
+    return ivf_query_tiled(*args, interpret=kernel_interpret(args[0]),
+                           **kw)
 
 
 def _chunked_layout(n_chunks=2, c_lists=16, d=128, seed=0):
@@ -54,10 +63,10 @@ def _chunked_layout(n_chunks=2, c_lists=16, d=128, seed=0):
 def test_csr_builder_invariants():
     (db3, s2t, a, b, cents, v_tile, v_col, v_len, v_orig, first_virt,
      dbq, assigns) = _chunked_layout(n_chunks=3, seed=3)
-    # Sublists fit one DMA window after 128-alignment clamping.
-    assert (v_len <= W_TILED - 128).all()
-    c0 = np.minimum((v_col // 128) * 128, TILE_ROWS - W_TILED)
-    assert ((v_col - c0) + v_len <= W_TILED).all()
+    # Sublists fit one probe window after end-of-tile clamping.
+    assert (v_len <= W).all()
+    c0 = np.minimum(v_col, TILE_ROWS - W)
+    assert ((v_col - c0) + v_len <= W).all()
     # No sublist crosses a tile boundary.
     assert (v_col + v_len <= TILE_ROWS).all()
     # Every row is covered exactly once, with its own list id.
@@ -78,14 +87,9 @@ def test_tiled_full_probe_is_exact():
     bq, k = 8, 8
     q = (dbq[rng.integers(0, dbq.shape[0], bq)]
          + rng.normal(size=(bq, dbq.shape[1])) * 0.1).astype(np.float32)
-    n_virt = len(v_len)
-    budget = -(-n_virt // P_STEP_TILED) * P_STEP_TILED
-    cents_v = cents[v_orig]
-    dd, rr = ivf_query_dma_tiled(
-        jnp.asarray(db3), jnp.asarray(s2t), jnp.asarray(a),
-        jnp.asarray(b), jnp.asarray(cents_v), jnp.asarray(v_tile),
-        jnp.asarray(v_col), jnp.asarray(v_len), jnp.asarray(q), k=k,
-        n_probe=budget, interpret=True)
+    table = build_slot_table(v_orig, cents.shape[0])
+    dd, rr = _query(db3, s2t, a, b, cents, table, v_tile, v_col, v_len, q,
+                    k=k, nprobe_orig=cents.shape[0])
     d2 = np.sqrt(((q[:, None, :].astype(np.float64)
                    - dbq[None, :, :]) ** 2).sum(-1))
     ref_rows = np.argsort(d2, axis=1)[:, :k]
@@ -102,14 +106,9 @@ def test_tiled_faithful_nprobe_matches_per_list_bruteforce():
     bq, k, nprobe = 8, 4, 3
     q = (dbq[rng.integers(0, dbq.shape[0], bq)]
          + rng.normal(size=(bq, dbq.shape[1])) * 0.1).astype(np.float32)
-    budget = probe_budget(v_orig, nprobe)
-    cents_v = cents[v_orig]
-    dd, rr = ivf_query_dma_tiled(
-        jnp.asarray(db3), jnp.asarray(s2t), jnp.asarray(a),
-        jnp.asarray(b), jnp.asarray(cents_v), jnp.asarray(v_tile),
-        jnp.asarray(v_col), jnp.asarray(v_len), jnp.asarray(q), k=k,
-        n_probe=budget, first_virt=jnp.asarray(first_virt),
-        nprobe_orig=nprobe, interpret=True)
+    table = build_slot_table(v_orig, cents.shape[0])
+    dd, rr = _query(db3, s2t, a, b, cents, table, v_tile, v_col, v_len, q,
+                    k=k, nprobe_orig=nprobe)
     rr = np.asarray(rr)
     dd = np.asarray(dd)
     # FAISS-faithful reference: rank ORIGINAL lists by centroid L2, scan
@@ -128,45 +127,60 @@ def test_tiled_faithful_nprobe_matches_per_list_bruteforce():
                                    rtol=1e-4, atol=1e-4)
 
 
-def test_tiled_table_selection_matches_virtual_path():
-    # Original-centroid + slot-table selection (the 100M configuration)
-    # must agree with the virtual-centroid faithful path (no centroid
-    # ties on random data).
-    from smqtk_indexing_tpu.ops.pallas_ivf import (
-        build_slot_table, ivf_query_dma_tiled_table,
-    )
-    (db3, s2t, a, b, cents, v_tile, v_col, v_len, v_orig, first_virt,
-     dbq, assigns) = _chunked_layout(n_chunks=3, c_lists=16, seed=13)
+def test_list_scores_match_float64():
+    # The list-scan kernel alone: random windows (dead slots, windows
+    # clamped at the tile end, +inf-poisoned rows) against numpy.
     rng = np.random.default_rng(4)
-    bq, k, nprobe = 8, 8, 3
-    q = (dbq[rng.integers(0, dbq.shape[0], bq)]
-         + rng.normal(size=(bq, dbq.shape[1])) * 0.1).astype(np.float32)
-    budget = probe_budget(v_orig, nprobe)
-    d_v, r_v = ivf_query_dma_tiled(
-        jnp.asarray(db3), jnp.asarray(s2t), jnp.asarray(a),
-        jnp.asarray(b), jnp.asarray(cents[v_orig]), jnp.asarray(v_tile),
-        jnp.asarray(v_col), jnp.asarray(v_len), jnp.asarray(q), k=k,
-        n_probe=budget, first_virt=jnp.asarray(first_virt),
-        nprobe_orig=nprobe, interpret=True)
-    table = build_slot_table(v_orig, cents.shape[0])
-    d_t, r_t = ivf_query_dma_tiled_table(
-        jnp.asarray(db3), jnp.asarray(s2t), jnp.asarray(a),
-        jnp.asarray(b), jnp.asarray(cents), jnp.asarray(table),
-        jnp.asarray(v_tile), jnp.asarray(v_col), jnp.asarray(v_len),
-        jnp.asarray(q), k=k, nprobe_orig=nprobe, interpret=True)
-    assert np.array_equal(np.asarray(r_t), np.asarray(r_v))
-    np.testing.assert_allclose(np.asarray(d_t), np.asarray(d_v),
-                               rtol=1e-5, atol=1e-5)
+    n_tiles, d, b, p = 2, 128, 3, 7
+    db3 = rng.integers(-127, 128, size=(n_tiles, d, TILE_ROWS)) \
+        .astype(np.int8)
+    s2t = rng.random((n_tiles, 1, TILE_ROWS)).astype(np.float32) * 50
+    s2t[1, 0, TILE_ROWS - 3] = np.inf
+    t = rng.normal(size=(b, d)).astype(np.float32)
+    ti = rng.integers(0, n_tiles, size=(b, p)).astype(np.int32)
+    c0 = rng.integers(0, TILE_ROWS - W + 1, size=(b, p)).astype(np.int32)
+    c0[0, 0], ti[0, 0] = TILE_ROWS - W, 1
+    lo = rng.integers(0, 64, size=(b, p)).astype(np.int32)
+    hi = np.minimum(lo + rng.integers(0, W, size=(b, p)), W) \
+        .astype(np.int32)
+    hi[0, 0], hi[1, 2] = W, lo[1, 2]            # full window, dead slot
+    args = [jnp.asarray(x) for x in (db3, s2t, t, ti, c0, lo, hi)]
+    got = np.asarray(list_scores(*args,
+                                 interpret=kernel_interpret(args[0])))
+    ref = np.full((b, p, W), np.inf)
+    for i in range(b):
+        for j in range(p):
+            win = db3[ti[i, j], :, c0[i, j]:c0[i, j] + W].astype(np.float64)
+            sc = s2t[ti[i, j], 0, c0[i, j]:c0[i, j] + W] \
+                - 2.0 * (t[i].astype(np.float64) @ win)
+            ref[i, j, lo[i, j]:hi[i, j]] = sc[lo[i, j]:hi[i, j]]
+    fin = np.isfinite(ref)
+    assert np.array_equal(np.isfinite(got), fin)
+    np.testing.assert_allclose(got[fin], ref[fin], rtol=0,
+                               atol=1e-5 * np.abs(ref[fin]).max())
+
+
+def test_tiled_winner_gather_matches_numpy():
+    # Exact re-rank input: the winners' codes gathered straight from the
+    # tiled layout (row r at [r // TILE_ROWS, :, r % TILE_ROWS]).
+    from smqtk_indexing_tpu.ops.ivf_tiled import _gather_codes
+    rng = np.random.default_rng(7)
+    db3 = rng.integers(-127, 128, size=(3, 64, TILE_ROWS)).astype(np.int8)
+    rows = rng.integers(0, 3 * TILE_ROWS, size=(12, 8)).astype(np.int32)
+    rows[0, :2] = -1                              # empty slots clamp to 0
+    got = np.asarray(_gather_codes(jnp.asarray(db3), jnp.asarray(rows),
+                                   TILE_ROWS))
+    rc = np.maximum(rows, 0)
+    oracle = db3[rc // TILE_ROWS, :, rc % TILE_ROWS]
+    assert got.shape == (12, 8, 64)
+    assert np.array_equal(got, oracle)
 
 
 def test_tiled_score_rerank_matches_gather():
     # rerank="score" must return (near-tie order aside) the same rows
-    # as the exact gather path; distances carry the surrogate's
-    # cancellation-bounded noise (~2^-16 * (||q - b||^2 + s2) on the
-    # squared distance — measured on-chip, below the SQ8 step).
-    from smqtk_indexing_tpu.ops.pallas_ivf import (
-        build_slot_table, ivf_query_dma_tiled_table,
-    )
+    # as the exact gather path; distances carry the f32 surrogate's
+    # cancellation-bounded noise on the squared distance, far below the
+    # SQ8 step.
     (db3, s2t, a, b, cents, v_tile, v_col, v_len, v_orig, first_virt,
      dbq, assigns) = _chunked_layout(n_chunks=3, c_lists=16, seed=21)
     rng = np.random.default_rng(6)
@@ -174,25 +188,13 @@ def test_tiled_score_rerank_matches_gather():
     q = (dbq[rng.integers(0, dbq.shape[0], bq)]
          + rng.normal(size=(bq, dbq.shape[1])) * 0.1).astype(np.float32)
     table = build_slot_table(v_orig, cents.shape[0])
-    args = (jnp.asarray(db3), jnp.asarray(s2t), jnp.asarray(a),
-            jnp.asarray(b), jnp.asarray(cents), jnp.asarray(table),
-            jnp.asarray(v_tile), jnp.asarray(v_col), jnp.asarray(v_len),
-            jnp.asarray(q))
-    # Run the PRODUCTION kernel mode: interpret only off-TPU. In
-    # interpret mode ON the chip, XLA folds the split-bf16 dot pair
-    # back into one default-precision dot (measured 0.117 abs score
-    # error vs the real kernel's 0.0003) — the real kernel is the thing
-    # score-mode accuracy claims are about.
-    interp = jax.default_backend() != "tpu"
-    d_g, r_g = ivf_query_dma_tiled_table(
-        *args, k=k, nprobe_orig=nprobe, interpret=interp)
-    d_s, r_s = ivf_query_dma_tiled_table(
-        *args, k=k, nprobe_orig=nprobe, interpret=interp, rerank="score")
-    # Score mode ranks by the kernel surrogate, which deviates from the
-    # exact quantized distance by the cancellation bound — below f32
-    # resolution in interpret-on-CPU, visible on the real chip, where
-    # near-ties at the k boundary (and adjacent orders) may
-    # legitimately differ from the exact-gather path. The contract:
+    args = (db3, s2t, a, b, cents, table, v_tile, v_col, v_len, q)
+    d_g, r_g = _query(*args, k=k, nprobe_orig=nprobe)
+    d_s, r_s = _query(*args, k=k, nprobe_orig=nprobe, rerank="score")
+    # Score mode ranks by the scan's f32 surrogate, which deviates from
+    # the exact quantized distance by f32 cancellation, so near-ties at
+    # the k boundary (and adjacent orders) may legitimately differ from
+    # the exact-gather path. The contract:
     # every score-mode winner's EXACT distance is within tolerance of
     # the true k-th distance, reported distances match the exact ones,
     # and the list is sorted.
@@ -201,12 +203,11 @@ def test_tiled_score_rerank_matches_gather():
     for bi in range(bq):
         exact = np.sqrt(((q[bi].astype(np.float64)
                           - dbq[r_s[bi]]) ** 2).sum(-1))
-        # Surrogate noise bound on the SQUARED distance: the split-bf16
-        # dot leaves ~2^-16 relative residual of the score magnitude
-        # (||q - b||^2 + s2); 4x margin.
+        # Surrogate noise bound on the SQUARED distance: f32 cancellation
+        # of the score magnitude (||q - b||^2 + s2), 1e-5 relative.
         scale = float((q[bi].astype(np.float64) ** 2).sum()
                       + (dbq[r_s[bi]] ** 2).sum(-1).max())
-        tol2 = 4.0 * 2.0 ** -16 * scale
+        tol2 = 1e-5 * scale
         tol = tol2 / max(2.0 * float(d_g[bi][-1]), 1e-6)
         assert (exact <= d_g[bi][-1] + tol).all(), bi
         assert len(set(r_s[bi]) & set(r_g[bi])) >= k - 2, bi
@@ -219,24 +220,16 @@ def test_tiled_score_mode_pads_to_k():
     # The (B, k) return contract must hold in score mode even when k
     # exceeds the probe budget's candidate width (gather mode pads via
     # exact_rerank_decoded; regression: score mode once returned
-    # (B, kk) with kk = n_probe * W_TILED < k).
-    from smqtk_indexing_tpu.ops.pallas_ivf import (
-        build_slot_table, ivf_query_dma_tiled_table,
-    )
+    # (B, kk) with kk = n_probe * W < k).
     (db3, s2t, a, b, cents, v_tile, v_col, v_len, v_orig, first_virt,
      dbq, assigns) = _chunked_layout(n_chunks=2, c_lists=16, seed=31)
     rng = np.random.default_rng(9)
     q = dbq[rng.integers(0, dbq.shape[0], 2)].astype(np.float32)
     table = build_slot_table(v_orig, cents.shape[0])
-    s_max = table.shape[1]
-    budget = -(-1 * s_max // P_STEP_TILED) * P_STEP_TILED  # nprobe=1
-    k = budget * W_TILED + 40          # wider than every candidate slot
-    d_s, r_s = ivf_query_dma_tiled_table(
-        jnp.asarray(db3), jnp.asarray(s2t), jnp.asarray(a),
-        jnp.asarray(b), jnp.asarray(cents), jnp.asarray(table),
-        jnp.asarray(v_tile), jnp.asarray(v_col), jnp.asarray(v_len),
-        jnp.asarray(q), k=k, nprobe_orig=1, interpret=True,
-        rerank="score")
+    budget = table.shape[1]                   # nprobe=1 -> S_max slots
+    k = budget * W + 40                # wider than every candidate slot
+    d_s, r_s = _query(db3, s2t, a, b, cents, table, v_tile, v_col, v_len,
+                      q, k=k, nprobe_orig=1, rerank="score")
     assert d_s.shape == (2, k) and r_s.shape == (2, k)
     d_s, r_s = np.asarray(d_s), np.asarray(r_s)
     assert np.isinf(d_s[:, -40:]).all()
@@ -244,3 +237,34 @@ def test_tiled_score_mode_pads_to_k():
     # the real candidates lead the row, sorted ascending
     lead = d_s[0][np.isfinite(d_s[0])]
     assert (np.diff(lead) >= 0).all() and lead.size > 0
+
+
+@pytest.mark.gpu
+def test_list_scores_compiled_at_real_width():
+    # The list-scan kernel compiled for the card at serving widths
+    # (d=128, B=1024 queries x 16 probe slots) against float64 numpy on
+    # 64 of the queries.
+    rng = np.random.default_rng(5)
+    n_tiles, d, b, p = 64, 128, 1024, 16
+    db3 = rng.integers(-127, 128, size=(n_tiles, d, TILE_ROWS)) \
+        .astype(np.int8)
+    s2t = rng.random((n_tiles, 1, TILE_ROWS)).astype(np.float32) * 50
+    t = rng.normal(size=(b, d)).astype(np.float32)
+    ti = rng.integers(0, n_tiles, size=(b, p)).astype(np.int32)
+    c0 = rng.integers(0, TILE_ROWS - W + 1, size=(b, p)).astype(np.int32)
+    lo = np.zeros((b, p), np.int32)
+    hi = rng.integers(0, W + 1, size=(b, p)).astype(np.int32)
+    args = [jnp.asarray(x) for x in (db3, s2t, t, ti, c0, lo, hi)]
+    assert kernel_interpret(args[0]) is False
+    got = np.asarray(list_scores(*args, interpret=False))[:64]
+    ref = np.full((64, p, W), np.inf)
+    for i in range(64):
+        for j in range(p):
+            win = db3[ti[i, j], :, c0[i, j]:c0[i, j] + W].astype(np.float64)
+            sc = s2t[ti[i, j], 0, c0[i, j]:c0[i, j] + W] \
+                - 2.0 * (t[i].astype(np.float64) @ win)
+            ref[i, j, :hi[i, j]] = sc[:hi[i, j]]
+    fin = np.isfinite(ref)
+    assert np.array_equal(np.isfinite(got), fin)
+    np.testing.assert_allclose(got[fin], ref[fin], rtol=0,
+                               atol=1e-5 * np.abs(ref[fin]).max())

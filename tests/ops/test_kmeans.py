@@ -35,8 +35,7 @@ def test_masked_rows_do_not_move_centroids():
 def test_empty_cells_split_large_donors():
     # Init under-covers the data (all init centroids inside ONE of two
     # well-separated blobs): without splitting, the far blob piles into
-    # one mega-cell and the other centroids stay empty forever —
-    # measured at the 100M IVF build as 497K-row mega-lists.
+    # one mega-cell and the other centroids stay empty forever.
     rng = np.random.default_rng(2)
     n_half, d, c_count = 2048, 16, 16
     blob_a = rng.normal(size=(n_half, d)).astype(np.float32)

@@ -114,9 +114,8 @@ def test_store_pq_sharded_matches_single():
 
     from smqtk_indexing_tpu.parallel import make_mesh
 
-    # Pin to CPU: under SMQTK_TPU_TESTS the mesh falls back to CPU while
-    # the unsharded store would run on the real TPU — the property under
-    # test is sharding equivalence, not backend numerics.
+    # Pin to CPU: the property under test is sharding equivalence, not
+    # backend numerics.
     with jax.default_device(jax.devices("cpu")[0]):
         n, d = 2048, 32
         mat = _clustered(n, d, seed=7)

@@ -71,13 +71,14 @@ def test_sq8_topk_high_recall_vs_exact(metric):
     assert np.all(np.diff(d_sq8, axis=1) >= -1e-5)
 
 
-def test_sq8_fused_stage1_matches_streamed():
-    """The Pallas int8 stage 1 (interpret mode) must reproduce the XLA
-    streamed scan's results exactly (same stage 2 / exact re-rank)."""
+def test_sq8_two_stage_matches_float64():
+    """The streamed two-stage SQ8 scan (segment minima, then the kept
+    segments re-scored and the winners re-ranked in f32) returns the
+    float64 top-k over the dequantized codes, dead rows excluded."""
     import jax.numpy as jnp
 
     from smqtk_indexing_tpu.ops import sq8
-    from smqtk_indexing_tpu.ops.pallas_scan import TILE_N
+    from smqtk_indexing_tpu.ops.device import TILE_N
 
     rng = np.random.default_rng(0)
     n, d, b, k = 2 * TILE_N, 128, 8, 8
@@ -91,17 +92,21 @@ def test_sq8_fused_stage1_matches_streamed():
     valid = np.ones(n, bool)
     valid[100:200] = False
     vj = jnp.asarray(valid)
+    x = codes.astype(np.float64) * a + bb
+    q64 = q.astype(np.float64)
     for metric in ("euclidean", "inner_product"):
-        d_ref, r_ref = sq8.sq8_topk(cj, aj, bj, s2, nrm, vj,
-                                    jnp.asarray(q), k=k, metric=metric,
-                                    chunk=1024)
         d_f, r_f = sq8.sq8_topk(cj, aj, bj, s2, nrm, vj, jnp.asarray(q),
-                                k=k, metric=metric, chunk=1024,
-                                codes_t=jnp.asarray(codes.T.copy()),
-                                interpret=True)
-        assert np.array_equal(np.asarray(r_f), np.asarray(r_ref)), metric
-        np.testing.assert_allclose(np.asarray(d_f), np.asarray(d_ref),
-                                   atol=1e-5, rtol=1e-6)
+                                k=k, metric=metric, chunk=1024)
+        if metric == "euclidean":
+            ref = np.sqrt(((q64[:, None] - x[None]) ** 2).sum(-1))
+        else:
+            ref = -(q64 @ x.T)
+        ref[:, ~valid] = np.inf
+        rows = np.argsort(ref, axis=1)[:, :k]
+        assert np.array_equal(np.asarray(r_f), rows), metric
+        np.testing.assert_allclose(np.asarray(d_f),
+                                   np.take_along_axis(ref, rows, 1),
+                                   rtol=1e-5, atol=1e-4)
 
 
 def test_sq8_topk_self_match_and_chunked():
@@ -185,60 +190,16 @@ def test_factory_sq8_strings():
     assert index_from_factory_string("IDMap,PQ16").dtype == "pq16"
 
 
-def test_sq8_blocked_matches_rowmajor():
-    """The segment-blocked single-copy layout must reproduce the
-    row-major scan's results (interpret-mode Pallas stage 1)."""
+@pytest.mark.parametrize("metric", ["euclidean", "inner_product",
+                                    "cosine"])
+def test_sq8_chunked_matches_single_block(metric):
+    """The streamed two-stage path (N > chunk) and the single-block path
+    (N <= chunk) agree on the same codes, for every matmul-form metric."""
     import jax.numpy as jnp
 
     from smqtk_indexing_tpu.ops import sq8
 
-    rng = np.random.default_rng(3)
-    n, d, b, k = 16384, 128, 8, 8
-    mat = (rng.random((n, d), dtype=np.float32) * 10)
-    a, bb = sq8.sq8_train(mat)
-    codes = sq8.sq8_encode_np(mat, a, bb)
-    q = (rng.random((b, d), dtype=np.float32) * 10)
-    aj, bj = jnp.asarray(a), jnp.asarray(bb)
-    cj = jnp.asarray(codes)
-    s2, nrm = sq8.sq8_row_stats(cj, aj, bj)
-    valid = np.ones(n, bool)
-    valid[200:300] = False
-    vj = jnp.asarray(valid)
-    blk = jnp.asarray(np.ascontiguousarray(
-        codes.reshape(n // 128, 128, d).transpose(0, 2, 1)))
-    tiled = jnp.asarray(np.ascontiguousarray(
-        codes.reshape(n // 4096, 4096, d).transpose(0, 2, 1)))
-    for metric in ("euclidean", "inner_product"):
-        d_ref, r_ref = sq8.sq8_topk(cj, aj, bj, s2, nrm, vj,
-                                    jnp.asarray(q), k=k, metric=metric,
-                                    chunk=4096)
-        for layout in (blk, tiled):
-            d_blk, r_blk = sq8.sq8_topk_blocked(layout, aj, bj, s2, vj,
-                                                jnp.asarray(q), k=k,
-                                                metric=metric,
-                                                interpret=True)
-            assert np.array_equal(np.asarray(r_blk),
-                                  np.asarray(r_ref)), metric
-            np.testing.assert_allclose(np.asarray(d_blk),
-                                       np.asarray(d_ref),
-                                       atol=1e-5, rtol=1e-6)
-    import pytest
-    with pytest.raises(ValueError, match="euclidean"):
-        sq8.sq8_topk_blocked(blk, aj, bj, s2, vj, jnp.asarray(q), k=2,
-                             metric="cosine", interpret=True)
-
-
-def test_sq8_i8dot_matches_bf16_path():
-    """The opt-in int8 x int8 stage-1 dot (i8dot=True) must reproduce the
-    bf16 path's results through BOTH fused entry points: the query-side
-    quantization error (~2^-8 relative, one global scale) only perturbs
-    segment selection inside its k+16 margin, and stage 2 / exact
-    re-rank rescore from the unscaled operands."""
-    import jax.numpy as jnp
-
-    from smqtk_indexing_tpu.ops import sq8
-
-    rng = np.random.default_rng(7)
+    rng = np.random.default_rng(5)
     n, d, b, k = 16384, 128, 8, 8
     mat = rng.standard_normal((n, d)).astype(np.float32)
     a, bb = sq8.sq8_train(mat)
@@ -248,34 +209,15 @@ def test_sq8_i8dot_matches_bf16_path():
     cj = jnp.asarray(codes)
     s2, nrm = sq8.sq8_row_stats(cj, aj, bj)
     valid = np.ones(n, bool)
-    valid[50:150] = False            # dead-row +inf poison must survive
+    valid[50:150] = False            # dead-row mask must survive
     vj = jnp.asarray(valid)
     qj = jnp.asarray(q)
-    tiled = jnp.asarray(np.ascontiguousarray(
-        codes.reshape(n // 4096, 4096, d).transpose(0, 2, 1)))
-    blk = jnp.asarray(np.ascontiguousarray(
-        codes.reshape(n // 128, 128, d).transpose(0, 2, 1)))
-    ct = jnp.asarray(codes.T.copy())
-    for metric in ("euclidean", "inner_product"):
-        d_ref, r_ref = sq8.sq8_topk(cj, aj, bj, s2, nrm, vj, qj, k=k,
-                                    metric=metric, chunk=4096)
-        # Fused row-major mirror (sq8_topk codes_t branch).
-        d_i8, r_i8 = sq8.sq8_topk(cj, aj, bj, s2, nrm, vj, qj, k=k,
-                                  metric=metric, chunk=4096, codes_t=ct,
-                                  interpret=True, i8dot=True)
-        assert np.array_equal(np.asarray(r_i8), np.asarray(r_ref)), metric
-        np.testing.assert_allclose(np.asarray(d_i8), np.asarray(d_ref),
-                                   atol=1e-5, rtol=1e-6)
-        # Single-copy layouts (sq8_topk_blocked, tiled + blocked).
-        for layout in (tiled, blk):
-            d_b, r_b = sq8.sq8_topk_blocked(layout, aj, bj, s2, vj, qj,
-                                            k=k, metric=metric,
-                                            interpret=True, i8dot=True)
-            assert np.array_equal(np.asarray(r_b),
-                                  np.asarray(r_ref)), metric
-            np.testing.assert_allclose(np.asarray(d_b),
-                                       np.asarray(d_ref),
-                                       atol=1e-5, rtol=1e-6)
-    # No dead row may surface.
-    assert not (set(np.asarray(r_i8).ravel().tolist())
+    d_one, r_one = sq8.sq8_topk(cj, aj, bj, s2, nrm, vj, qj, k=k,
+                                metric=metric, chunk=n)
+    d_str, r_str = sq8.sq8_topk(cj, aj, bj, s2, nrm, vj, qj, k=k,
+                                metric=metric, chunk=4096)
+    assert np.array_equal(np.asarray(r_str), np.asarray(r_one)), metric
+    np.testing.assert_allclose(np.asarray(d_str), np.asarray(d_one),
+                               atol=1e-5, rtol=1e-6)
+    assert not (set(np.asarray(r_str).ravel().tolist())
                 & set(range(50, 150)))

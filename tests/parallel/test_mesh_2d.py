@@ -1,7 +1,7 @@
 """
-2-D (DCN x ICI) mesh tests: rows shard over both axes and the hierarchical
+2-D ("dcn" x "shard") mesh tests: rows shard over both axes and the hierarchical
 top-k merge (intra-slice all-gather over "shard", inter-slice merge over
-"dcn") must be bit-identical to the single-chip kernels. Runs on the
+"dcn") must be bit-identical to the single-device kernels. Runs on the
 8-virtual-device CPU platform as a (2, 4) two-slice emulation.
 """
 import jax.numpy as jnp

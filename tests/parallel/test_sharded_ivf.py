@@ -37,8 +37,6 @@ class TestShardCsr:
 
 
 def test_sharded_ivf_kernel_matches_single():
-    # make_mesh falls back to the 8-virtual-CPU host platform when the
-    # default backend is smaller (e.g. SMQTK_TPU_TESTS=1 on one chip).
     mesh = make_mesh(8)
     rng = np.random.default_rng(1)
     n, d, c, k = 1024, 32, 8, 8

@@ -2,7 +2,7 @@
 
 Reference parity target: FAISS 'IVF<n>,SQ8'/'IVF<n>,PQ<M>' configs
 (smqtk_indexing/impls/nn_index/faiss.py:190) served row-sharded — per-shard
-tiled DMA scans of the clipped list views + hierarchical k-merge
+tiled list scans of the clipped list views + hierarchical k-merge
 (parallel/sharded_ivf_code.py).
 """
 import numpy as np
@@ -15,7 +15,7 @@ from smqtk_indexing_tpu.data.descriptor import (
     DescriptorMemoryElement, MemoryDescriptorSet,
 )
 from smqtk_indexing_tpu.models.nn_index.ivf import IvfNearestNeighborsIndex
-from smqtk_indexing_tpu.ops.pallas_ivf import TILE_ROWS
+from smqtk_indexing_tpu.ops.ivf_tiled import TILE_ROWS
 from smqtk_indexing_tpu.parallel.sharded_ivf_code import shard_tiled_layout
 
 

@@ -2,7 +2,7 @@
 Sharded LSH composite on the 8-virtual-device CPU mesh: n_devices must
 shard the fallback LinearHashIndex and the candidate re-rank without
 changing any result (candidate distances are computed elementwise, so
-sharded and single-chip scores are bit-identical).
+sharded and single-device scores are bit-identical).
 """
 import numpy as np
 import pytest
@@ -21,12 +21,9 @@ def mesh():
 
 @pytest.fixture(autouse=True)
 def _pin_cpu():
-    # These tests assert sharded == single-chip bit-identity; under
-    # SMQTK_TPU_TESTS the mesh falls back to CPU while unsharded arrays
-    # would land on the real TPU, turning this into a cross-BACKEND
-    # comparison (different reduction orders). Pin everything to CPU —
-    # the property under test is sharding equivalence, not backend
-    # numerics.
+    # These tests assert sharded == single-device bit-identity. Pin
+    # everything to CPU — the property under test is sharding
+    # equivalence, not backend numerics.
     import jax
     with jax.default_device(jax.devices("cpu")[0]):
         yield

@@ -1,6 +1,6 @@
 """
 Sharded MRPT on the 8-virtual-device CPU mesh: per-shard leaf tables must
-reproduce the single-chip query exactly (same candidate union, same exact
+reproduce the single-device query exactly (same candidate union, same exact
 distances), at the kernel level and through the model API.
 """
 import jax.numpy as jnp
@@ -25,8 +25,7 @@ def mesh():
 @pytest.fixture(autouse=True)
 def _pin_cpu():
     # Sharded-vs-single bit-identity must not become a cross-backend
-    # comparison when SMQTK_TPU_TESTS puts unsharded arrays on the TPU
-    # while the mesh falls back to CPU.
+    # comparison: pin unsharded arrays to the CPU.
     import jax
     with jax.default_device(jax.devices("cpu")[0]):
         yield

@@ -1,7 +1,7 @@
 """
 Sharding tests on the 8-virtual-device CPU mesh (conftest forces
 xla_force_host_platform_device_count=8): sharded results must exactly match
-the single-chip kernels.
+the single-device kernels.
 """
 import jax
 import jax.numpy as jnp
@@ -20,8 +20,6 @@ from smqtk_indexing_tpu.utils.bits import pack_bit_vectors_u32
 
 @pytest.fixture(scope="module")
 def mesh():
-    # make_mesh falls back to the 8-virtual-CPU host platform when the
-    # default backend is smaller (e.g. SMQTK_TPU_TESTS=1 on one chip).
     return make_mesh(8)
 
 

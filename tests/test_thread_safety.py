@@ -170,10 +170,9 @@ def test_concurrent_sharded_ivf_code_tier():
 
 
 def test_concurrent_ivf_rows_tiled(monkeypatch):
-    """The rows-sq8 tiled routing shares the code tier's query/poisoning
-    paths but rebuilds from the FLOAT mirror on update — concurrent use
-    must never crash or resurrect removed rows."""
-    monkeypatch.setenv("SMQTK_TPU_ROWS_TILED", "1")
+    """The tiled engine (storage='code') poisons removed rows in place
+    and re-lays out on update — concurrent use must never crash or
+    resurrect removed rows."""
     from smqtk_indexing_tpu.models.nn_index.ivf import (
         IvfNearestNeighborsIndex,
     )
@@ -181,7 +180,7 @@ def test_concurrent_ivf_rows_tiled(monkeypatch):
     elems = [DescriptorMemoryElement(j, rng.normal(size=16).astype(np.float32))
              for j in range(256)]
     idx = IvfNearestNeighborsIndex(
-        dtype="sq8", storage="rows", n_lists=4, nprobe=4,
+        dtype="sq8", storage="code", n_lists=4, nprobe=4,
         kmeans_iterations=4, random_seed=0)
     idx.build_index(elems)
     assert idx._dev3 is not None

@@ -2,13 +2,14 @@
 Codec recall ladder on CORRELATED (rank-8 latent) data — the regime where
 PQ/OPQ/residual meaningfully separate (iid-dim synthetic mixtures are
 PQ-adversarial by construction: every subspace carries independent
-information, so 16-byte codes hit a codec ceiling regardless of pipeline —
-measured round 3, docs/benchmarks.md Config 3).
+information, so 16-byte codes hit a codec ceiling regardless of
+pipeline).
 
 Recall@10 is DEVICE-INDEPENDENT (identical codecs, layouts and probe
-semantics run on CPU XLA and TPU kernels — parity held by the test
-suite), so this table is valid from a CPU run; QPS columns are measured
-separately on the chip (bench_all.py section `ivf_corr`).
+semantics run on the CPU and the GPU — parity held by the test suite), so
+this table is valid from a CPU run, which is the default here (set
+JAX_PLATFORMS to choose another backend); QPS comes from the card
+(bench_all.py section `ivf_corr`).
 
 Usage: python tools/recall_ladder.py [n] [d]   (defaults 200000 64)
 Emits one JSON line per (codec, nprobe) plus a markdown table on stderr.
@@ -20,12 +21,7 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
-if os.environ.get("SMQTK_TPU_CPU", "1") == "1" and \
-        not os.environ.get("SMQTK_TPU_TESTS"):
-    os.environ.setdefault(
-        "XLA_FLAGS", "--xla_force_host_platform_device_count=1")
-    import jax
-    jax.config.update("jax_platforms", "cpu")
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 import numpy as np  # noqa: E402
 
